@@ -7,12 +7,14 @@ imports nothing of JAX and nothing of ``diga_tpu``.
 
 Layout conventions:
   * at the public functions (``two_scale_logits``, ``TwoScaleEvaluator``,
-    ``resize_bilinear``, ``group_norm``) tensors keep the reference
-    layout: images are NHWC float, BGR, mean-subtracted and divided by
-    128; labels are (B, H, W) trainIds with 255 = ignore;
+    ``resize_bilinear``, ``group_norm``, ``distillation_loss``, the
+    photometric and mixing ops, the train step's batch) tensors keep the
+    reference layout: images are NHWC float, BGR, mean-subtracted and
+    divided by 128; labels are (B, H, W) trainIds with 255 = ignore;
+    logits are NHWC;
   * inside the model tensors are NCHW in ``torch.channels_last`` memory
     format, so a contiguous NHWC tensor permuted to NCHW is a view with
-    no copy, and the GroupNorm kernel reads it as it lies.
+    no copy, and the kernels read it as it lies.
 
 Entry points run on the CUDA device unless the caller asks for the CPU;
 on the CPU every kernel wrapper runs its plain PyTorch version.

@@ -13,36 +13,17 @@ from __future__ import annotations
 
 import os
 
-import numpy as np
 import torch
 
 from .. import resolve_device
 from ..data import bdd_dataset, cityscapes_dataset, mapillary_dataset
 from ..data.label_maps import CLASS_NAMES_16, CLASS_NAMES_19
-from ..eval.evaluator import TwoScaleEvaluator
+from ..eval.evaluator import TwoScaleEvaluator, iter_val
 from ..train.build import build_eval
 from .common import base_parser, get_config, refuse_multi_device
 
 _DATASETS = {"cityscapes": cityscapes_dataset, "bdd": bdd_dataset,
              "mapillary": mapillary_dataset}
-
-
-def iter_val(ds, limit=None, batch=1):
-    """Fixed-shape batches of ``batch`` images.  The final partial batch is
-    padded by repeating the last image with all-ignore (255) labels, which
-    contribute nothing to the confusion matrix; ``names`` lists only the
-    real entries so prediction dumps skip the padding."""
-    n = len(ds) if limit is None else min(limit, len(ds))
-    for start in range(0, n, batch):
-        samples = [ds[i] for i in range(start, min(start + batch, n))]
-        k = len(samples)
-        images = [s["image"] for s in samples]
-        labels = [s["label"].astype(np.int32) for s in samples]
-        while len(images) < batch:
-            images.append(images[-1])
-            labels.append(np.full_like(labels[-1], 255))
-        yield {"image": np.stack(images), "label": np.stack(labels),
-               "names": [s["name"] for s in samples], "valid": k}
 
 
 def main(argv=None):

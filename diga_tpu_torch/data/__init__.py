@@ -3,7 +3,9 @@ from .datasets import (
     SegDataset,
     bdd_dataset,
     cityscapes_dataset,
+    gta5_dataset,
     mapillary_dataset,
     read_list,
 )
 from .normalize import IMG_MEAN_BGR, normalize_image
+from .transforms import Compose, RandomCrop, RandomHorizontallyFlip, RandomSizedAndCrop

@@ -1,13 +1,14 @@
-"""File-list validation datasets (numpy/PIL).
+"""File-list segmentation datasets (numpy/PIL).
 
-The port's own copy of the evaluation part of ``diga_tpu/data/datasets.py``:
-``SegDataset`` without the training-time augmentation, rare-class
-resampling and pseudo-label loading, and the three val constructors.
-The JAX package routes the uint8 remap and the normalize through its C
-host ops; their numpy forms below give the same values bit for bit.
+The port's own copy of ``diga_tpu/data/datasets.py``: ``SegDataset`` with
+the training-time geometric augmentation and the GTA5 rare-class
+resampling, and the GTA5 and val constructors.  Pseudo-label loading
+(self-training) and SYNTHIA come with later slices.  The JAX package
+routes the uint8 remap and the normalize through its C host ops; their
+numpy forms below give the same values bit for bit.
 
-Reference citations: CityLoader.py:30-138, MapillaryLoader.py:133+,
-BDDLoader.py:35+.
+Reference citations: GTA5Loader.py:35-112, CityLoader.py:30-138,
+MapillaryLoader.py:133+, BDDLoader.py:35+.
 """
 
 from __future__ import annotations
@@ -20,7 +21,13 @@ from PIL import Image
 
 from . import label_maps
 from .normalize import normalize_image
-from .transforms import resize_pair
+from .transforms import Compose, resize_pair
+
+
+# rare-class resampling: a class counts when it covers more than this share
+# of the pixels, and a crop is drawn at most this often (GTA5Loader.py:80-106)
+RARE_MIN_FRAC = 0.02
+RARE_MAX_TRIES = 5
 
 
 def read_list(path: str) -> list[str]:
@@ -44,7 +51,7 @@ def _read_image(path: str) -> Image.Image:
 
 @dataclasses.dataclass
 class SegDataset:
-    """Paths + decode + resize + normalize; yields numpy samples.
+    """Paths + decode + resize + geometric aug + normalize; yields numpy samples.
 
     Each sample is a dict:
       image:  float32 (H, W, 3) BGR normalized (NHWC layout, see normalize.py)
@@ -59,6 +66,8 @@ class SegDataset:
     lbl_template: str = "{name}"
     lut: np.ndarray = dataclasses.field(default_factory=lambda: label_maps.CITYSCAPES_LUT)
     resize_hw: tuple[int, int] | None = None
+    transform: Compose | None = None
+    rare_class_resample: bool = False
 
     def __post_init__(self):
         if len(self.img_list) != len(self.lbl_list):
@@ -74,17 +83,49 @@ class SegDataset:
     def lbl_path(self, i: int) -> str:
         return os.path.join(self.root, self.lbl_template.format(name=self.lbl_list[i]))
 
-    def __getitem__(self, index: int) -> dict:
+    def _accept_rare(self, label_trainid: np.ndarray) -> bool:
+        """Reference acceptance rule: >=3 classes each covering >2% of the
+        pixels, or exactly 2 of which neither is the ignore class
+        (GTA5Loader.py:98-106)."""
+        cats, counts = np.unique(label_trainid, return_counts=True)
+        frac = counts / counts.sum()
+        n_pass = int((frac > RARE_MIN_FRAC).sum())
+        if n_pass >= 3:
+            return True
+        if n_pass == 2:
+            # cats is sorted, so ignore (255) is last when present
+            return not (cats[-1] == label_maps.IGNORE_LABEL and frac[-1] > RARE_MIN_FRAC)
+        return False
+
+    def __getitem__(self, index: int, rng: np.random.Generator | None = None) -> dict:
         image = _read_image(self.img_path(index))
         label = Image.open(self.lbl_path(index))
         if self.resize_hw is not None:
             image, (label,) = resize_pair(image, [label], self.resize_hw)
-        lbl_np = label_maps.remap_labels(np.array(label), self.lut)
+        if self.transform is None:
+            img_np = np.array(image)
+            lbl_np = label_maps.remap_labels(np.array(label), self.lut)
+        else:
+            rng = rng if rng is not None else np.random.default_rng()
+            for _ in range(RARE_MAX_TRIES if self.rare_class_resample else 1):
+                img_np, lbl_raw = self.transform(image, label, rng=rng)
+                lbl_np = label_maps.remap_labels(lbl_raw, self.lut)
+                if not self.rare_class_resample or self._accept_rare(lbl_np):
+                    break
         return {
-            "image": normalize_image(np.array(image)),
+            "image": normalize_image(img_np),
             "label": lbl_np.astype(np.uint8),
             "name": self.img_list[index],
         }
+
+
+def gta5_dataset(root: str, list_path: str, **kw) -> SegDataset:
+    """GTA5: images/<name>, labels/<name>.  reference: GTA5Loader.py:54-56"""
+    names = read_list(list_path)
+    kw.setdefault("rare_class_resample", True)
+    return SegDataset(root=root, img_list=names, lbl_list=names,
+                      img_template="images/{name}", lbl_template="labels/{name}",
+                      lut=label_maps.GTA5_LUT, **kw)
 
 
 def cityscapes_dataset(

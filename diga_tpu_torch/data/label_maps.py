@@ -69,6 +69,7 @@ def build_lut(mapping: dict[int, int], size: int = 256, fill: int = IGNORE_LABEL
 
 
 CITYSCAPES_LUT = build_lut(CITYSCAPES_ID_TO_TRAINID)
+GTA5_LUT = CITYSCAPES_LUT
 MAPILLARY_LUT = build_lut(MAPILLARY_ID_TO_TRAINID)
 # BDD100k labels already come as trainIds: 0..18 kept, everything else
 # ignored.  reference: BDDLoader.py:120-125

@@ -1,0 +1,107 @@
+"""Threaded host batch loader over a ``SegDataset``.
+
+The port's own copy of ``diga_tpu/data/pipeline.py::BatchLoader`` (:23-110)
+with ``EpochShuffleSampler`` and ``collate`` from
+``diga_tpu/data/datasets.py`` (:266-331), on one host.  PIL/numpy decode
+releases the interpreter lock for most of its work, so threads make an
+effective worker pool.  Every sample's augmentation draws come from a
+numpy ``Generator`` keyed by (seed, stream position), so a batch's pixels
+do not depend on the worker count.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterator, Sequence
+
+import numpy as np
+
+from .datasets import SegDataset
+
+
+class EpochShuffleSampler:
+    """Position -> dataset index: epoch p // n, slot p % n of that epoch's
+    permutation drawn from (seed, epoch)."""
+
+    def __init__(self, n: int, seed: int = 0):
+        self.n = n
+        self.seed = seed
+        self._orders: dict[int, np.ndarray] = {}
+        self._lock = threading.Lock()
+
+    def _order(self, epoch: int) -> np.ndarray:
+        with self._lock:
+            order = self._orders.get(epoch)
+            if order is None:
+                order = np.arange(self.n)
+                np.random.default_rng((self.seed, epoch)).shuffle(order)
+                self._orders = {epoch: order}  # keep only the current epoch
+            return order
+
+    def index_at(self, position: int) -> int:
+        epoch, slot = divmod(position, self.n)
+        return int(self._order(epoch)[slot])
+
+
+def collate(samples: Sequence[dict]) -> dict:
+    """Stack sample dicts into batched numpy arrays (labels -> int32)."""
+    return {"image": np.stack([s["image"] for s in samples]).astype(np.float32),
+            "label": np.stack([s["label"] for s in samples]).astype(np.int32),
+            "name": [s["name"] for s in samples]}
+
+
+class BatchLoader:
+    """Infinite batches of ``batch_size`` samples, built by worker threads
+    and yielded in order."""
+
+    def __init__(self, dataset: SegDataset, batch_size: int, seed: int = 0,
+                 num_workers: int = 4, prefetch: int = 4):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.seed = seed
+        self.sampler = EpochShuffleSampler(len(dataset), seed=seed)
+        self.num_workers = max(1, num_workers)
+        self._q: queue.Queue = queue.Queue(maxsize=prefetch)
+        self._stop = threading.Event()
+        self._threads: list[threading.Thread] = []
+
+    def _producer(self, worker_id: int) -> None:
+        batch_idx = worker_id
+        while not self._stop.is_set():
+            positions = [batch_idx * self.batch_size + j for j in range(self.batch_size)]
+            samples = [self.dataset.__getitem__(self.sampler.index_at(p),
+                                                rng=np.random.default_rng((self.seed, p)))
+                       for p in positions]
+            item = (batch_idx, collate(samples))
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=1.0)
+                    break
+                except queue.Full:
+                    continue
+            batch_idx += self.num_workers
+
+    def start(self) -> None:
+        if self._threads:
+            return
+        for w in range(self.num_workers):
+            t = threading.Thread(target=self._producer, args=(w,), daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=60.0)
+
+    def __iter__(self) -> Iterator[dict]:
+        self.start()
+        pending: dict[int, dict] = {}
+        want = 0
+        while True:
+            while want not in pending:
+                idx, batch = self._q.get()
+                pending[idx] = batch
+            yield pending.pop(want)
+            want += 1

@@ -1,9 +1,9 @@
-"""Synthetic val fixtures for tests and the on-card smoke run.
+"""Synthetic fixtures for tests and the on-card smoke run.
 
-The port's own copy of the val fixtures of ``diga_tpu/data/synthetic.py``:
-a Cityscapes-shaped directory tree of PNGs with known label histograms,
-and the flat layout the BDD/Mapillary loaders read.  Same seeds, same
-pixels as the JAX package's fixtures.
+The port's own copy of fixtures of ``diga_tpu/data/synthetic.py``: GTA5-
+and Cityscapes-shaped directory trees of PNGs with known label
+histograms, and the flat layout the BDD/Mapillary loaders read.  Same
+seeds, same pixels as the JAX package's fixtures.
 """
 
 from __future__ import annotations
@@ -35,6 +35,26 @@ def _write_lists(root: str, prefix: str, img_names: list[str],
         with open(path, "w") as f:
             f.write("\n".join(names) + "\n")
     return img_list, lbl_list
+
+
+def make_gta5_fixture(root: str, n: int = 4, h: int = 64, w: int = 128, seed: int = 0) -> str:
+    """images/<name>.png + labels/<name>.png + list file; returns the list path."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    os.makedirs(os.path.join(root, "labels"), exist_ok=True)
+    raw_ids = list(CITYSCAPES_ID_TO_TRAINID.keys())
+    names = []
+    for i in range(n):
+        name = f"{i:05d}.png"
+        img = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+        lbl = _blocky_label(rng, h, w, raw_ids)
+        Image.fromarray(img).save(os.path.join(root, "images", name))
+        Image.fromarray(lbl).save(os.path.join(root, "labels", name))
+        names.append(name)
+    list_path = os.path.join(root, "train.txt")
+    with open(list_path, "w") as f:
+        f.write("\n".join(names) + "\n")
+    return list_path
 
 
 def make_flat_fixture(root: str, n: int = 2, h: int = 48, w: int = 64,

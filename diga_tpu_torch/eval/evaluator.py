@@ -15,10 +15,30 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..ops.metrics import RunningScore
 from ..ops.resize import resize_bilinear
+
+
+def iter_val(ds, limit=None, batch=1):
+    """Fixed-shape batches of ``batch`` images from a val dataset.  The final
+    partial batch is padded by repeating the last image with all-ignore
+    (255) labels, which contribute nothing to the confusion matrix;
+    ``names`` lists only the real entries so prediction dumps skip the
+    padding."""
+    n = len(ds) if limit is None else min(limit, len(ds))
+    for start in range(0, n, batch):
+        samples = [ds[i] for i in range(start, min(start + batch, n))]
+        k = len(samples)
+        images = [s["image"] for s in samples]
+        labels = [s["label"].astype(np.int32) for s in samples]
+        while len(images) < batch:
+            images.append(images[-1])
+            labels.append(np.full_like(labels[-1], 255))
+        yield {"image": np.stack(images), "label": np.stack(labels),
+               "names": [s["name"] for s in samples], "valid": k}
 
 
 def two_scale_logits(apply_fn: Callable, image: torch.Tensor,

@@ -14,6 +14,12 @@ Layout rules:
   BN     scale/bias (params), mean/var (batch_stats) ->
          weight/bias/running_mean/running_var
   GN     scale/bias -> weight/bias
+
+``translator_state_dict_from_jax`` is the port's own copy of
+``diga_tpu/models/convert_translator.py::encoder_to_torch`` and
+``decoder_to_torch`` (:72-110): the JAX translator's parameters become
+the reference ``enc_s``/``dec_s2t`` state_dicts, which the port's
+``ImgEncoder``/``ImgDecoder`` load with ``strict=True``.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import torch
 
 
 def _tensor(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+    return torch.from_numpy(np.array(a, copy=True, order="C"))
 
 
 def state_dict_from_jax(params: dict, batch_stats: dict,
@@ -71,6 +77,41 @@ def state_dict_from_jax(params: dict, batch_stats: dict,
     put_gn("final.bottleneck.2", h["bottleneck_gn"])
     put_conv("final.head.1", h["classifier"])
     return sd
+
+
+def _put_conv_block(sd: dict, key: str, node: dict) -> None:
+    conv = node["conv"]
+    sd[key + ".conv.weight"] = _tensor(np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in conv:
+        sd[key + ".conv.bias"] = _tensor(conv["bias"])
+
+
+def _put_res_blocks(sd: dict, key: str, params: dict, n_res: int) -> None:
+    for r in range(n_res):
+        for j in (0, 1):
+            _put_conv_block(sd, f"{key}.model.{r}.model.{j}", params[f"res{r}"][f"conv{j}"])
+
+
+def translator_state_dict_from_jax(enc_params: dict, dec_params: dict) -> dict[str, dict]:
+    """{"enc_s": state_dict, "dec_s2t": state_dict} from the JAX ImgEncoder
+    and ImgDecoder parameter trees (nested dicts of arrays)."""
+    n_down = sum(1 for k in enc_params if k.startswith("down"))
+    n_res_e = sum(1 for k in enc_params if k.startswith("res"))
+    enc: dict[str, torch.Tensor] = {}
+    _put_conv_block(enc, "model.0", enc_params["stem"])
+    for i in range(n_down):
+        _put_conv_block(enc, f"model.{1 + i}", enc_params[f"down{i}"])
+    _put_res_blocks(enc, f"model.{1 + n_down}", enc_params, n_res_e)
+
+    n_up = sum(1 for k in dec_params if k.startswith("up"))
+    n_res_d = sum(1 for k in dec_params if k.startswith("res"))
+    dec: dict[str, torch.Tensor] = {}
+    _put_res_blocks(dec, "model.0", dec_params, n_res_d)
+    # layout: [ResBlocks, (Upsample, Conv2dBlock) x n_up, Conv2dBlock]
+    for i in range(n_up):
+        _put_conv_block(dec, f"model.{2 + 2 * i}", dec_params[f"up{i}"])
+    _put_conv_block(dec, f"model.{1 + 2 * n_up}", dec_params["out"])
+    return {"enc_s": enc, "dec_s2t": dec}
 
 
 def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:

@@ -15,13 +15,23 @@ SegModel over model/seg_model_noaux.py, the keys
   * BN: ``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1 == flax 0.9)
   * ``final`` = the ASPP head Classifier_Module2: 1x1 + d6/12/18/24
     branches, each conv + GroupNorm(32) + ReLU; concat -> SE -> 3x3 conv
-    + GroupNorm; Dropout2d(0.1) + 1x1 classifier without bias
-  * ``forward`` returns (shallow, deep, logits, feat)
+    + GroupNorm; channel dropout (0.1) + 1x1 classifier without bias
+  * ``forward`` returns (shallow, deep, logits, feat); ``backbone`` runs
+    layer0..layer4 only
+
+Training (reference seg_model_noaux.py:62-76,223-225): the BN affine is
+frozen (``requires_grad=False``, left out of the optimizer) while BN keeps
+normalizing with batch statistics in train mode and updating its running
+statistics (``nn.BatchNorm2d`` stores the unbiased running variance, as
+the JAX ``BatchNorm2D`` does).  The head's channel dropout draws its mask
+from an explicit ``torch.Generator`` (``ChannelDropout.generator``).
 
 Tensors are NCHW in ``torch.channels_last`` memory format.  Compute dtype:
-``set_compute_dtype`` casts convs and linears (the JAX model casts its f32
-params to the compute dtype at use); norms keep f32 parameters, as the
-JAX model keeps its GroupNorm affine and BN statistics in f32.
+``set_compute_dtype`` casts convs and linears in place, for a frozen eval
+model (the JAX model casts its f32 params to the compute dtype at use);
+norms keep f32 parameters, as the JAX model keeps its GroupNorm affine and
+BN statistics in f32.  A trained model keeps f32 parameters and computes
+in bf16 under ``torch.autocast`` (``train/build.py``).
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ import torch
 import torch.nn as nn
 
 from .. import MEMORY_FORMAT
-from ..ops.group_norm import group_norm
+from ..ops.group_norm import group_norm, group_norm_plain
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention; flax 0.9
@@ -83,9 +93,13 @@ def _stage(inplanes: int, planes: int, blocks: int, stride: int = 1,
 class FusedGroupNorm(nn.Module):
     """GroupNorm with f32 statistics and x-dtype arithmetic (NCHW in/out).
 
-    Counterpart of the JAX ``FusedGroupNorm`` (:185-234); the work is
-    ``ops.group_norm`` — the CUDA kernel on the card — on the NHWC view of
-    the channels_last activation.
+    Counterpart of the JAX ``FusedGroupNorm`` (:185-234), on the NHWC view
+    of the channels_last activation.  Where no gradient is needed (eval,
+    the EMA teacher's forward) the work is ``ops.group_norm``, the CUDA
+    kernel B2a/B2b on the card.  Under autograd (the student's forward) it
+    is the differentiable PyTorch form of the same formula, the
+    counterpart of the XLA form the JAX training step keeps
+    (``diga_tpu/train/build.py:259-263``); B2 has no backward kernel.
     """
 
     def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5):
@@ -96,8 +110,31 @@ class FusedGroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = group_norm(x.permute(0, 2, 3, 1), self.weight, self.bias, self.num_groups, self.eps)
-        return y.permute(0, 3, 1, 2)
+        xh = x.permute(0, 2, 3, 1)
+        needs_grad = torch.is_grad_enabled() and (
+            x.requires_grad or self.weight.requires_grad or self.bias.requires_grad)
+        norm = group_norm_plain if needs_grad else group_norm
+        return norm(xh, self.weight, self.bias, self.num_groups, self.eps).permute(0, 3, 1, 2)
+
+
+class ChannelDropout(nn.Module):
+    """Dropout2d: zero whole channels with probability ``p`` in train mode,
+    scale the kept ones by 1/(1-p) (the JAX ``nn.Dropout`` with
+    ``broadcast_dims=(1, 2)``).  The mask comes from ``self.generator``
+    (the default generator where it is None)."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        u = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=self.generator,
+                       device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 class SEBlock(nn.Module):
@@ -129,7 +166,7 @@ class ASPPHead(nn.Module):
         cat = 256 * len(branches)
         self.bottleneck = nn.Sequential(
             SEBlock(cat), nn.Conv2d(cat, 256, 3, padding=1, bias=True), FusedGroupNorm(256))
-        self.head = nn.Sequential(nn.Dropout2d(droprate),
+        self.head = nn.Sequential(ChannelDropout(droprate),
                                   nn.Conv2d(256, num_classes, 1, bias=False))
 
     def forward(self, x: torch.Tensor):
@@ -142,7 +179,8 @@ class ASPPHead(nn.Module):
 class DeepLabV2(nn.Module):
     """ResNet-101 DeepLabV2 returning (shallow, deep, logits, feat)."""
 
-    def __init__(self, num_classes: int = 19, layers: Sequence[int] = (3, 4, 23, 3)):
+    def __init__(self, num_classes: int = 19, layers: Sequence[int] = (3, 4, 23, 3),
+                 droprate: float = 0.1):
         super().__init__()
         self.layer0 = nn.Sequential(
             nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False), _bn(64),
@@ -151,7 +189,11 @@ class DeepLabV2(nn.Module):
         self.layer2 = _stage(256, 128, layers[1], stride=2)
         self.layer3 = _stage(512, 256, layers[2], dilation=2)
         self.layer4 = _stage(1024, 512, layers[3], dilation=4)
-        self.final = ASPPHead(2048, num_classes)
+        self.final = ASPPHead(2048, num_classes, droprate=droprate)
+        for m in self.modules():
+            if isinstance(m, nn.BatchNorm2d):  # frozen affine
+                m.weight.requires_grad_(False)
+                m.bias.requires_grad_(False)
         self.to(memory_format=MEMORY_FORMAT)
 
     @property
@@ -165,10 +207,14 @@ class DeepLabV2(nn.Module):
                 m.to(dtype)
         return self
 
-    def forward(self, x: torch.Tensor):
-        """``x``: NCHW image batch (channels_last); outputs in the compute dtype."""
+    def backbone(self, x: torch.Tensor):
+        """(shallow, deep): layer0..layer4 without the head."""
         x = self.layer0(x.to(self.compute_dtype))
         shallow = self.layer2(self.layer1(x))
-        deep = self.layer4(self.layer3(shallow))
+        return shallow, self.layer4(self.layer3(shallow))
+
+    def forward(self, x: torch.Tensor):
+        """``x``: NCHW image batch (channels_last); outputs in the compute dtype."""
+        shallow, deep = self.backbone(x)
         feat, logits = self.final(deep)
         return shallow, deep, logits, feat

@@ -2,7 +2,9 @@
 
 Counterpart of ``diga_tpu/ops/pallas_gn.py``, the Pallas pair
 ``_stats_kernel`` (B2a) and ``_norm_kernel`` (B2b).  In the port it is the
-GroupNorm of the ASPP head on the eval forward (six sites per scale).
+GroupNorm of the ASPP head wherever no gradient is needed: the eval
+forward (six sites per scale) and the warm-up step's EMA teacher (six
+sites per step).
 
 ``group_norm(x, scale, bias)`` takes the JAX layout: ``x`` is a contiguous
 NHWC tensor, i.e. a channels_last NCHW activation permuted to NHWC (a view,
@@ -30,7 +32,6 @@ from .stats import sums_and_squares
 
 launches = {"group_norm_stats": 0, "group_norm_apply": 0}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_VECTORS_PER_ROW = 1024  # C / (16 bytes / element size): one thread each
 _MAX_GROUP_CHANNELS = 256  # C / groups: one fold-kernel thread each
 _APPLY_THREADS = 256
@@ -52,18 +53,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _on_cpu(x: torch.Tensor) -> bool:
-    if x.device.type == "cpu":
-        return True
-    if x.device.type == "cuda":
-        return False
-    raise ValueError(f"group_norm: unsupported device {x.device}")
-
-
 def _check_x(x: torch.Tensor, num_groups: int) -> None:
     if x.dim() != 4:
         raise ValueError(f"group_norm: expected NHWC x of rank 4, got shape {tuple(x.shape)}")
-    if x.dtype not in _DTYPE_CODES:
+    if x.dtype not in native.DTYPE_CODES:
         raise TypeError(f"group_norm: dtype must be float32 or bfloat16, got {x.dtype}")
     b, h, w, c = x.shape
     if b * h * w == 0:
@@ -90,20 +83,6 @@ def _check_affine(x: torch.Tensor, *vecs: torch.Tensor) -> None:
         if torch.is_grad_enabled() and v.requires_grad:
             raise RuntimeError("group_norm is forward-only; call it under torch.no_grad() "
                                "or torch.inference_mode()")
-
-
-@functools.cache
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def _launch(x: torch.Tensor, fn, *args) -> int:
-    """Call the C entry ``fn(*args, stream)`` on x's device and current stream."""
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if x.device.index == torch.cuda.current_device():
-        return fn(*args, stream)
-    with torch.cuda.device(x.device):
-        return fn(*args, stream)
 
 
 def _check_aligned(*tensors: torch.Tensor) -> None:
@@ -153,12 +132,12 @@ def group_norm_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """B2a: per-channel sums and the folded per-(image, channel) mul/add."""
     _check_x(x, num_groups)
     _check_affine(x, scale, bias)
-    if _on_cpu(x):
+    if native.on_cpu(x):
         return group_norm_stats_plain(x, scale, bias, num_groups, eps)
     b, h, w, c = x.shape
     hw = h * w
     # about two blocks per SM over the whole batch, at least 32 rows each
-    rows = max(32, -(-(b * hw) // (2 * _sm_count(x.device.index))))
+    rows = max(32, -(-(b * hw) // (2 * native.sm_count(x.device.index))))
     n_chunks = -(-hw // rows)
     # one f32 buffer: partials [2, b, n_chunks, c], then Σx [b, c], Σx² [b, c];
     # one x.dtype buffer: mul [b, c], add [b, c] (every piece 16-byte aligned)
@@ -169,10 +148,10 @@ def group_norm_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     scale = scale.to(torch.float32).contiguous()
     bias = bias.to(torch.float32).contiguous()
     _check_aligned(x)
-    err = _launch(x, _lib().gn_stats, _DTYPE_CODES[x.dtype], x.data_ptr(), b, hw, c,
-                  num_groups, rows, n_chunks, float(hw * (c // num_groups)), eps,
-                  scale.data_ptr(), bias.data_ptr(), f32.data_ptr(), sums.data_ptr(),
-                  sumsq.data_ptr(), mul.data_ptr(), add.data_ptr())
+    err = native.launch(x, _lib().gn_stats, native.DTYPE_CODES[x.dtype], x.data_ptr(), b, hw,
+                        c, num_groups, rows, n_chunks, float(hw * (c // num_groups)), eps,
+                        scale.data_ptr(), bias.data_ptr(), f32.data_ptr(), sums.data_ptr(),
+                        sumsq.data_ptr(), mul.data_ptr(), add.data_ptr())
     if err:
         raise RuntimeError(f"gn_stats kernel launch failed: CUDA error {err}")
     launches["group_norm_stats"] += 1
@@ -187,14 +166,15 @@ def group_norm_apply(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor) -> t
         if v.shape != (b, c) or v.dtype != x.dtype or v.device != x.device or not v.is_contiguous():
             raise ValueError(f"group_norm_apply: mul/add must be contiguous ({b}, {c}) "
                              f"{x.dtype} on {x.device}")
-    if _on_cpu(x):
+    if native.on_cpu(x):
         return group_norm_apply_plain(x, mul, add)
     y = torch.empty_like(x)
     _check_aligned(x, mul, add, y)
     n_vec = x.numel() * x.element_size() // 16
-    n_blocks = min(-(-n_vec // _APPLY_THREADS), 16 * _sm_count(x.device.index))
-    err = _launch(x, _lib().gn_apply, _DTYPE_CODES[x.dtype], x.data_ptr(), mul.data_ptr(),
-                  add.data_ptr(), y.data_ptr(), x.numel(), c, x.numel() // b, n_blocks)
+    n_blocks = min(-(-n_vec // _APPLY_THREADS), 16 * native.sm_count(x.device.index))
+    err = native.launch(x, _lib().gn_apply, native.DTYPE_CODES[x.dtype], x.data_ptr(),
+                        mul.data_ptr(), add.data_ptr(), y.data_ptr(), x.numel(), c,
+                        x.numel() // b, n_blocks)
     if err:
         raise RuntimeError(f"gn_apply kernel launch failed: CUDA error {err}")
     launches["group_norm_apply"] += 1

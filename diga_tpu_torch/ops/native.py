@@ -10,16 +10,22 @@ import time, so the CPU tests import the kernel modules freely.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = {"group_norm": "group_norm.cu"}
+SOURCES = {"group_norm": "group_norm.cu", "distill": "distill.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# the kernels' element types, as the C entries number them
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -79,3 +85,26 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     _loaded[name] = lib
     return lib
+
+
+def on_cpu(x: torch.Tensor) -> bool:
+    """True for a CPU tensor (plain version), False for a CUDA one (kernel)."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type == "cuda":
+        return False
+    raise ValueError(f"unsupported device {x.device} (the port runs on cuda or cpu)")
+
+
+@functools.cache
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def launch(x: torch.Tensor, fn, *args) -> int:
+    """Call the C entry ``fn(*args, stream)`` on x's device and current stream."""
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.device.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(x.device):
+        return fn(*args, stream)

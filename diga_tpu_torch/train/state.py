@@ -1,0 +1,60 @@
+"""The warm-up stage's train state.
+
+Counterpart of ``diga_tpu/train/state.py`` (:23-63).  The JAX state is one
+immutable pytree; here the step mutates the modules and the optimizer in
+place, and the state holds them together with everything else a step
+reads: the step counter, the frozen translator, and one explicit
+``torch.Generator`` per random draw (photometric factors, CrDoMix class
+selection, student dropout, teacher dropout).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+
+import torch
+import torch.nn as nn
+
+from ..models.resnet_deeplab import DeepLabV2
+
+
+@dataclasses.dataclass
+class SegTrainState:
+    student: DeepLabV2
+    teacher: DeepLabV2
+    optimizer: torch.optim.Optimizer
+    step: int
+    gen_photometric: torch.Generator
+    gen_mix: torch.Generator
+    gen_student_dropout: torch.Generator
+    gen_teacher_dropout: torch.Generator
+    translator: nn.ModuleDict | None = None  # frozen {"enc_s", "dec_s2t"}
+
+
+def _generator(device: torch.device, seed: int) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def create_seg_state(student: DeepLabV2, optimizer: torch.optim.Optimizer, seed: int,
+                     translator: nn.ModuleDict | None = None) -> SegTrainState:
+    """Teacher = a copy of the student (reference create_teacher_params,
+    util/utils.py:93-101), with no gradients; both in train mode (the
+    reference never puts the teacher in eval mode)."""
+    device = next(student.parameters()).device
+    teacher = copy.deepcopy(student)
+    teacher.requires_grad_(False)
+    student.train()
+    teacher.train()
+    if translator is not None:
+        translator.requires_grad_(False).eval()
+    state = SegTrainState(
+        student=student, teacher=teacher, optimizer=optimizer, step=0,
+        gen_photometric=_generator(device, seed + 1),
+        gen_mix=_generator(device, seed + 2),
+        gen_student_dropout=_generator(device, seed + 3),
+        gen_teacher_dropout=_generator(device, seed + 4),
+        translator=translator)
+    student.final.head[0].generator = state.gen_student_dropout
+    teacher.final.head[0].generator = state.gen_teacher_dropout
+    return state
