@@ -15,11 +15,14 @@ failure of which exits non-zero:
   3. GroupNorm kernels (B2a/B2b) against their plain versions on the card,
      at the eval and train paths' shapes plus two ragged ones, f32 (1e-5)
      and bf16 (3e-2); f32 channel sums at 1e-5 relative; two runs bitwise
-     equal.  Distillation kernels (B1a/B1b) against theirs at the train
-     path's (6, 512, 896, 19), a ragged (2, 7, 13, 19) and K=16, f32 and
-     bf16: the loss at 1e-5 relative, the gradient within 1e-5 x max|ds| in
-     f32 and one bf16 ulp in bf16, no teacher gradient, two runs bitwise
-     equal
+     equal.  Distillation kernels (B1a/B1b) against theirs, f32 and bf16,
+     at the train path's (6, 512, 896, 19) and at the edges of their tiled
+     design: a ragged (2, 7, 13, 19) whose aug half is not 16-byte aligned,
+     K=16, K=32, fewer pixels than one tile, a whole number of tiles, an
+     offset base pointer; and peaky logits (x10) at the path's shape in
+     bf16.  The loss at 1e-5 relative, the gradient within 1e-5 x max|ds|
+     in f32 and one bf16 ulp in bf16, no teacher gradient, two runs
+     bitwise equal
   4. tiny-depth model on the card against the same model on the CPU, f32,
      TF32 off: eval logits within 1e-3 of the CPU logits' largest
      magnitude; 3 warm-up steps with the same injected draws: losses at
@@ -39,8 +42,11 @@ failure of which exits non-zero:
      on the card (distillation kernel vs plain, in turns): ms/step, source
      imgs/s, peak memory
   7. kernel timing: per-site GroupNorm and distillation device times
-     against their byte bounds and plain versions; then the ``kernels``
-     JSON line, the card line and the result line
+     (CUDA events around back-to-back calls queued behind a sleep kernel)
+     against their byte bounds, plain versions and nearest library calls
+     (``torch.addcmul`` for B2b, ``torch.var_mean`` for B2a), with the
+     distillation kernels' launch plans; then the ``kernels`` JSON line,
+     the card line and the result line
 
 ``--profile DIR`` also writes torch.profiler tables and traces of one
 two-scale eval and of one warm-up step into DIR, with their busy shares.
@@ -89,11 +95,22 @@ from diga_tpu_torch.utils.checkpoint import export_role_keyed
 # f32 non-tensor-core FLOP/s, the rate the GroupNorm arithmetic runs at
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+SLEEP_CYCLES_PER_MS = 2_000_000  # torch.cuda._sleep at the H100's clock of at most 1.98 GHz
 GN_SITES = [(1, 129, 257, 256), (1, 65, 129, 256)]  # eval ASPP GN at full / half scale
 GN_TRAIN_SITE = (6, 65, 113, 256)  # the warm-up teacher's ASPP GN, crop 512x896
 CHECK_SHAPES = GN_SITES + [GN_TRAIN_SITE, (2, 17, 29, 256), (2, 8, 16, 64)]
 DISTILL_SHAPE = (6, 512, 896, 19)  # the warm-up path's upsampled [clean; aug] logits
-DISTILL_CHECK_SHAPES = [DISTILL_SHAPE, (2, 7, 13, 19), (2, 9, 11, 16)]
+BOTH = (torch.float32, torch.bfloat16)
+DISTILL_CHECKS = [  # (shape, dtypes, logit scale, base pointer offset in elements)
+    (DISTILL_SHAPE, BOTH, 3.0, 0),
+    ((2, 7, 13, 19), BOTH, 3.0, 0),  # ragged; the aug half starts at 91·K·elem, not 16-aligned
+    ((2, 9, 11, 16), BOTH, 3.0, 0),  # K=16 (SYNTHIA)
+    ((2, 8, 16, 32), BOTH, 3.0, 0),  # K=32, the largest tiles
+    ((2, 1, 5, 19), BOTH, 3.0, 0),  # fewer pixels than one tile
+    ((2, 16, 32, 19), BOTH, 3.0, 0),  # 512 pixels: a whole number of tiles in both dtypes
+    ((2, 8, 16, 32), BOTH, 3.0, 1),  # base pointer 1 element past 16-byte alignment
+    (DISTILL_SHAPE, (torch.bfloat16,), 30.0, 0),  # peaky logits (x10)
+]
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 PRESET = "gta2city_warmup"
 OUT_HW, DS_HW = (1024, 2048), (512, 1024)
@@ -356,31 +373,45 @@ def device_time_us(events) -> float:
 
 
 def time_us(fn, arg_sets, iters: int = 100) -> tuple[float, float]:
-    """(device µs, call µs) per call over ``iters`` calls cycling through
-    ``arg_sets`` (together larger than the 50 MB L2, so each call reads
-    cold data).  Device µs: the kernels' own durations (torch.profiler,
-    CUPTI).  Call µs: CUDA events around back-to-back calls, which is
-    the host's launch cost where that exceeds the device time."""
-    from torch.profiler import ProfilerActivity, profile
+    """(device µs, call µs) per call, cycling through ``arg_sets`` (together
+    larger than the 50 MB L2, so each call reads cold data).  Device µs:
+    CUDA events around ``iters`` back-to-back calls queued whole behind a
+    sleep kernel that outlasts the host's queueing, so the card runs them
+    with no host time between (the ~1 µs gaps between kernels count); where
+    the launch queue fills before the sleep ends, fewer calls.  Call µs:
+    CUDA events around ``iters`` back-to-back calls without the sleep, which
+    is the host's launch cost where that exceeds the device time."""
+    def run(i):
+        fn(*arg_sets[i % len(arg_sets)])
 
-    def loop():
-        for i in range(iters):
-            fn(*arg_sets[i % len(arg_sets)])
+    def event():
+        return torch.cuda.Event(enable_timing=True)
 
-    loop()  # warm-up
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for i in range(iters):  # warm-up
+        run(i)
+    start, end = event(), event()
     torch.cuda.synchronize()
     start.record()
-    loop()
+    for i in range(iters):
+        run(i)
     end.record()
     torch.cuda.synchronize()
     call = start.elapsed_time(end) / iters * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        loop()
+    n = iters
+    for _ in range(6):
+        sleep_ms = 2e-3 * n * call + 2.0  # the host queues a call in at most `call` µs
+        torch.cuda._sleep(int(sleep_ms * SLEEP_CYCLES_PER_MS))
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(n):
+            run(i)
+        end.record()
+        queued_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
-    dev = device_time_us(prof.key_averages()) / iters
-    require(dev > 0, "torch.profiler recorded no device time")
-    return dev, call
+        if queued_ms < 0.8 * sleep_ms:  # the card never waited for the host
+            return start.elapsed_time(end) / n * 1e3, call
+        n = max(10, n // 2)
+    raise SmokeFailure(f"time_us: the host could not queue {n} calls of {fn} within the sleep")
 
 
 def bound_us(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -416,6 +447,10 @@ def phase_gn_timing(card: str) -> dict:
                 "gn_library": time_us(F.group_norm, nchw),
                 "stats": time_us(G.group_norm_stats, full),
                 "stats_plain": time_us(G.group_norm_stats_plain, full),
+                # the nearest single call to B2a's group statistics (means and
+                # variances rather than sums), on the (b, h·w, 32, C/32) view
+                "stats_library": time_us(lambda v: torch.var_mean(v, dim=(1, 3)),
+                                         [(x.view(b, h * w, 32, c // 32),) for x in xs]),
                 "apply": time_us(G.group_norm_apply, app),
                 "apply_plain": time_us(G.group_norm_apply_plain, app),
                 "apply_library": time_us(torch.addcmul, lib_app),
@@ -435,11 +470,12 @@ def phase_gn_timing(card: str) -> dict:
               f"bound {bounds['gn'][0]:.2f} by {bounds['gn'][1]} share "
               f"{bounds['gn'][0] / t['gn'][0]:.2f}, plain {fmt('gn_plain')}, "
               f"F.group_norm {fmt('gn_library')} | stats {fmt('stats')} bound "
-              f"{bounds['stats'][0]:.2f}, plain {fmt('stats_plain')} | apply {fmt('apply')} "
+              f"{bounds['stats'][0]:.2f}, plain {fmt('stats_plain')}, torch.var_mean "
+              f"{fmt('stats_library')} | apply {fmt('apply')} "
               f"bound {bounds['apply'][0]:.2f}, plain {fmt('apply_plain')}, torch.addcmul "
               f"{fmt('apply_library')} | card={card}", flush=True)
         if shape == GN_SITES[0]:
-            for name, key, lib in (("group_norm_stats", "stats", None),
+            for name, key, lib in (("group_norm_stats", "stats", "stats_library"),
                                    ("group_norm_apply", "apply", "apply_library")):
                 per_kernel[name] = {
                     "shape": list(shape), "ms": t[key][0] / 1e3,
@@ -475,11 +511,29 @@ def phase_profile(eval_apply, img, lbl, ms_per_img: float, out_dir: str) -> None
 # the distillation kernels and the training path
 # ---------------------------------------------------------------------------
 
-def distill_inputs(shape, dtype, seed, device="cuda"):
+def distill_inputs(shape, dtype, seed, scale=3.0, offset=0, device="cuda"):
+    """Seeded logits; ``offset`` > 0 places each tensor that many elements
+    into a larger buffer (contiguous, base pointer off 16-byte alignment)."""
     rng = np.random.default_rng(seed)
-    t = (rng.normal(size=shape) * 3).astype(np.float32)
-    s = (rng.normal(size=shape) * 3).astype(np.float32)
-    return torch.from_numpy(t).to(device, dtype), torch.from_numpy(s).to(device, dtype)
+    out = []
+    for _ in range(2):
+        x = torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(device, dtype)
+        if offset:
+            buf = torch.empty(x.numel() + offset, device=device, dtype=dtype)
+            buf[offset:] = x.reshape(-1)
+            x = buf[offset:].view(shape)
+        out.append(x)
+    return tuple(out)
+
+
+def distill_plans(t: torch.Tensor, s: torch.Tensor) -> tuple:
+    """The launch plans of B1a and B1b on these inputs (ds as allocated by
+    ``empty_like(s)``: its pointer's alignment stands in for the real one)."""
+    ds = torch.empty_like(s)
+    n2, h, w, k = t.shape
+    args = (n2 // 2 * h * w, k, t.element_size(), native.sm_count(t.device.index))
+    return (D.launch_plan(*args, (t.data_ptr(), s.data_ptr())),
+            D.launch_plan(*args, (t.data_ptr(), s.data_ptr(), ds.data_ptr()), backward=True))
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -491,9 +545,9 @@ def phase_distill_vs_plain() -> dict:
     """Returns, per kernel, the largest |kernel - plain| at the path's shape (bf16)."""
     errs = {"distill_loss": 0.0, "distill_grad": 0.0}
     g = torch.tensor(0.5, device="cuda")  # lambda_distil, the step's incoming gradient
-    for i, shape in enumerate(DISTILL_CHECK_SHAPES):
-        for dtype in (torch.float32, torch.bfloat16):
-            t, s = distill_inputs(shape, dtype, seed=200 + i)
+    for i, (shape, dtypes, logit_scale, offset) in enumerate(DISTILL_CHECKS):
+        for dtype in dtypes:
+            t, s = distill_inputs(shape, dtype, seed=200 + i, scale=logit_scale, offset=offset)
             loss = [D.distillation_loss_kernel(t, s, 0.5) for _ in range(2)]
             ds = [D.distillation_grad_kernel(t, s, g, 0.5) for _ in range(2)]
             ref = D.distillation_loss_plain(t, s, 0.5)
@@ -501,7 +555,8 @@ def phase_distill_vs_plain() -> dict:
             tt, st = t.clone().requires_grad_(True), s.clone().requires_grad_(True)
             D.distillation_loss(tt, st, 0.5).backward()
             torch.cuda.synchronize()
-            tag = f"shape={shape} dtype={str(dtype).split('.')[-1]}"
+            tag = (f"shape={shape} dtype={str(dtype).split('.')[-1]} logits x{logit_scale:g}"
+                   + (f" base offset {offset}" if offset else ""))
             require(torch.equal(loss[0], loss[1]) and torch.equal(ds[0], ds[1]),
                     f"distillation kernels differ between two runs at {tag}")
             require(ds[0].dtype == dtype and ds[0].shape == s.shape, f"ds dtype/shape at {tag}")
@@ -520,10 +575,12 @@ def phase_distill_vs_plain() -> dict:
             tol = (f"1e-5*max|ds|={tol_v:.3e}" if dtype == torch.float32
                    else f"one bf16 ulp of max|ds|={tol_v:.3e}")
             require(ok, f"ds off at {tag}: max_abs_err {float(diff.max()):.3e}, tol {tol}")
+            plans = distill_plans(t, s)
             print(f"check distill {tag}: loss {float(loss[0]):.6f} rel_err "
                   f"{e_loss / abs(float(ref)):.2e} | ds max_abs_err {float(diff.max()):.3e} "
-                  f"tol {tol} | teacher grad None | bitwise-repeatable", flush=True)
-            if shape == DISTILL_SHAPE and dtype == torch.bfloat16:
+                  f"tol {tol} | teacher grad None | bitwise-repeatable | plan loss "
+                  f"{plans[0].describe()}; grad {plans[1].describe()}", flush=True)
+            if (shape, dtype, logit_scale) == (DISTILL_SHAPE, torch.bfloat16, 3.0):
                 errs = {"distill_loss": e_loss, "distill_grad": float(diff.max())}
             del t, s, loss, ds, ref, ref_ds, tt, st
     return errs
@@ -734,16 +791,21 @@ def phase_distill_timing(card: str) -> dict:
     bounds = {"distill_loss": bound_us(2 * xb + 4, 8 * 2 * numel),
               "distill_grad": bound_us(3 * xb + 4, 8 * 2 * numel)}
     per_kernel = {}
+    plans = dict(zip(("distill_loss", "distill_grad"), distill_plans(*pairs[0])))
+    require(all(p.vec for p in plans.values()),
+            f"the path's shape must take the 16-byte copies: {plans}")
     for name in ("distill_loss", "distill_grad"):
         dev, call = t[name]
         print(f"distill shape={DISTILL_SHAPE} bf16 {name}: device {dev:.2f} us (call "
               f"{call:.2f}) bound {bounds[name][0]:.2f} us by {bounds[name][1]} share "
               f"{bounds[name][0] / dev:.2f}, plain {t[name + '_plain'][0]:.2f} us (call "
-              f"{t[name + '_plain'][1]:.2f}) | card={card}", flush=True)
+              f"{t[name + '_plain'][1]:.2f}) | plan {plans[name].describe()} | card={card}",
+              flush=True)
         per_kernel[name] = {"shape": list(DISTILL_SHAPE), "ms": dev / 1e3,
                             "plain_ms": t[name + "_plain"][0] / 1e3,
                             "bound_ms": bounds[name][0] / 1e3, "bound_by": bounds[name][1],
-                            "library_ms": None, "call_ms": call / 1e3}
+                            "library_ms": None, "call_ms": call / 1e3,
+                            "plan": plans[name].describe()}
     return per_kernel
 
 

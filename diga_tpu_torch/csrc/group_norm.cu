@@ -12,9 +12,10 @@
 //   mul = (inv·scale) cast to x's type; add = (bias − mean·inv·scale) cast;
 //   y = x·mul + add in x's type (the product rounded before the add).
 //
-// What bounds it: bytes.  The work is a few flops per element, far below
-// the H100's ~295 flops per byte, so the floor is moving the activation
-// through HBM.  At the eval path's full-scale site (1, 129, 257, 256) in
+// What bounds it: bytes.  The work is a few flops per element on the FP32
+// lanes, far below the ~20 f32 operations per byte they allow (67 TFLOP/s
+// over 3.35 TB/s; the tensor cores do no part of it), so the floor is
+// moving the activation through HBM.  At the eval path's full-scale site (1, 129, 257, 256) in
 // bf16, reading x once and writing y once is 2 x 16.97 MB, about 10.1 us
 // at 3.35 TB/s; the half-scale site (1, 65, 129, 256) is 2 x 4.29 MB,
 // about 2.6 us.

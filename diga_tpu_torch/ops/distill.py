@@ -20,12 +20,15 @@ teacher gets no gradient (``None``).
 
 Each wrapper adds one to ``launches[<name>]`` when it launches its kernel;
 the forward issues two launches (per-block partials, then the ordered
-fold) per call.
+fold) per call.  ``launch_plan`` chooses each launch's persistent grid and
+copy width around the kernels' fixed tile and ring; it is plain Python, so
+the CPU tests hold it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -34,9 +37,18 @@ from . import native
 
 launches = {"distill_loss": 0, "distill_grad": 0}
 
-MAX_CLASSES = 32  # the kernel keeps a row of K logits in registers
-_THREADS = 256
-_BLOCKS_PER_SM = 16
+MAX_CLASSES = 32  # the launch plan sizes the shared-memory tiles for K <= 32
+
+# Hopper's limits (H100 and H200): shared memory of one SM (each resident
+# block reserves 1 KB of it), threads per SM
+SMEM_PER_SM = 233_472
+SMEM_RESERVED_PER_BLOCK = 1024
+THREADS_PER_SM = 2048
+# distill.cu's kTileBytes and kStages: small tiles, so that several blocks
+# share an SM and hide each other's per-tile barriers (PERF.md), and a ring
+# of two (this tile and the next in flight)
+TILE_BYTES = 256  # one class over a tile's pixels: R = 128 pixels in bf16, 64 in f32
+STAGES = 2
 
 
 def reset_launches() -> None:
@@ -48,9 +60,9 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = native.load("distill")
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.distill_loss.argtypes = [i, p, p, ll, i, f, i, p, p, p]
+    lib.distill_loss.argtypes = [i, p, p, ll, i, f, i, i, p, p, p]
     lib.distill_loss.restype = i
-    lib.distill_grad.argtypes = [i, p, p, p, ll, i, f, f, i, p, p]
+    lib.distill_grad.argtypes = [i, p, p, p, ll, i, f, f, i, i, p, p]
     lib.distill_grad.restype = i
     return lib
 
@@ -116,20 +128,66 @@ def distillation_grad_plain(t: torch.Tensor, s: torch.Tensor, g: torch.Tensor,
 # kernels (CUDA tensors)
 # ---------------------------------------------------------------------------
 
-def _n_blocks(t: torch.Tensor, npix: int) -> int:
-    return min(-(-npix // _THREADS), _BLOCKS_PER_SM * native.sm_count(t.device.index))
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    tile: int  # R: pixels per tile; 2R threads per block (one per pixel and direction)
+    grid: int  # persistent blocks, block b walking tiles b, b + grid, ...
+    smem: int  # dynamic shared-memory bytes per block
+    vec: bool  # 16-byte copies: every span starts 16-byte aligned
+    n_tiles: int
+
+    @property
+    def threads(self) -> int:
+        return 2 * self.tile
+
+    def describe(self) -> str:
+        return (f"R={self.tile} threads={self.threads} stages={STAGES} grid={self.grid} "
+                f"tiles={self.n_tiles} smem={self.smem} B 16-byte={self.vec}")
+
+
+def smem_bytes(backward: bool, k: int) -> int:
+    """Dynamic shared memory of one block (the same formula as distill.cu):
+    ``STAGES`` tiles of four input spans (t clean, t aug, s clean, s aug) of
+    R·K values, and for the backward a two-span output tile (ds clean, aug)."""
+    return (4 * STAGES + (2 if backward else 0)) * TILE_BYTES * k
+
+
+def launch_plan(npix: int, k: int, elem: int, sm_count: int, ptrs,
+                backward: bool = False) -> LaunchPlan:
+    """The launch of B1a (``backward=False``) or B1b on ``npix`` pixels of K
+    classes, ``elem`` bytes each, with device pointers ``ptrs`` (t, s and,
+    for the backward, ds).
+
+    R = ``TILE_BYTES``/elem pixels (a multiple of 32, so R·K·elem is a
+    multiple of 16 for every K).  The grid is as many blocks as fit on the
+    card at once (shared memory and threads per SM), at most one per tile.
+    The 16-byte path is taken exactly when every span starts 16-byte
+    aligned: each base pointer, and the aug half at npix·K·elem."""
+    tile, smem = TILE_BYTES // elem, smem_bytes(backward, k)
+    per_sm = max(1, min(THREADS_PER_SM // (2 * tile),
+                        SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK)))
+    n_tiles = -(-npix // tile)
+    vec = (npix * k * elem) % 16 == 0 and all(p % 16 == 0 for p in ptrs)
+    return LaunchPlan(tile=tile, grid=min(n_tiles, per_sm * sm_count), smem=smem, vec=vec,
+                      n_tiles=n_tiles)
+
+
+def _plan(t: torch.Tensor, ptrs, backward: bool) -> LaunchPlan:
+    n2, h, w, k = t.shape
+    return launch_plan(n2 // 2 * h * w, k, t.element_size(), native.sm_count(t.device.index),
+                       ptrs, backward)
 
 
 def distillation_loss_kernel(t: torch.Tensor, s: torch.Tensor, scale: float) -> torch.Tensor:
     """B1a: the loss as an f32 scalar on the device (two launches)."""
     n2, h, w, k = t.shape
     npix = n2 // 2 * h * w
-    n_blocks = _n_blocks(t, npix)
-    part = torch.empty(2 * n_blocks, device=t.device, dtype=torch.float32)
+    plan = _plan(t, (t.data_ptr(), s.data_ptr()), backward=False)
+    part = torch.empty(2 * plan.grid, device=t.device, dtype=torch.float32)
     out = torch.empty((), device=t.device, dtype=torch.float32)
     err = native.launch(t, _lib().distill_loss, native.DTYPE_CODES[t.dtype], t.data_ptr(),
-                        s.data_ptr(), npix, k, float(scale), n_blocks, part.data_ptr(),
-                        out.data_ptr())
+                        s.data_ptr(), npix, k, float(scale), plan.grid, int(plan.vec),
+                        part.data_ptr(), out.data_ptr())
     if err:
         raise RuntimeError(f"distill_loss kernel launch failed: CUDA error {err}")
     launches["distill_loss"] += 1
@@ -145,9 +203,10 @@ def distillation_grad_kernel(t: torch.Tensor, s: torch.Tensor, g: torch.Tensor,
     if g.numel() != 1:
         raise ValueError(f"distill_grad: expected a scalar incoming gradient, got {tuple(g.shape)}")
     ds = torch.empty_like(s)
+    plan = _plan(t, (t.data_ptr(), s.data_ptr(), ds.data_ptr()), backward=True)
     err = native.launch(t, _lib().distill_grad, native.DTYPE_CODES[t.dtype], t.data_ptr(),
                         s.data_ptr(), g.data_ptr(), npix, k, float(scale / npix),
-                        float(1.0 / npix), _n_blocks(t, npix), ds.data_ptr())
+                        float(1.0 / npix), plan.grid, int(plan.vec), ds.data_ptr())
     if err:
         raise RuntimeError(f"distill_grad kernel launch failed: CUDA error {err}")
     launches["distill_grad"] += 1

@@ -11,6 +11,8 @@ does the same at the warm-up path's shape).
 """
 
 import math
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -164,3 +166,88 @@ def test_cuda_kernels_match_plain(dtype):
     # f32: 1e-5 of the largest gradient; bf16: one bf16 ulp at the largest
     tol = 1e-5 * scale if dtype == torch.float32 else 2.0 ** (math.floor(math.log2(scale)) - 7)
     torch.testing.assert_close(ds.float(), ref_ds.float(), atol=tol, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' launch plan (pure Python, ops/distill.py::launch_plan)
+# ---------------------------------------------------------------------------
+
+MAIN_NPIX = 3 * 512 * 896  # the warm-up path's (6, 512, 896, 19): pixels per view
+SMS = 132  # H100 SXM
+ALIGNED = 0x7F00_0000_0000  # a 16-byte aligned device address
+DISTILL_CU = pathlib.Path(D.__file__).resolve().parents[1] / "csrc" / "distill.cu"
+
+
+def _plan(npix, k=19, elem=2, backward=False, ptrs=(ALIGNED,) * 3):
+    return D.launch_plan(npix, k, elem, SMS, ptrs[:3 if backward else 2], backward)
+
+
+def _tile_walk(npix, plan):
+    """Per block, the [start, stop) pixel ranges it takes, in its order, as
+    distill.cu's ``Walk`` takes them (block b: tiles b, b + grid, ...).
+    This holds the plan's grid and tile count; that the kernels themselves
+    cover every pixel once is shown on the card (chip_smoke.py phase 3:
+    under one tile, whole tiles, ragged)."""
+    r = plan.tile
+    return [[(i * r, min((i + 1) * r, npix)) for i in range(b, plan.n_tiles, plan.grid)]
+            for b in range(plan.grid)]
+
+
+@pytest.mark.parametrize("name,value", [("kTileBytes", D.TILE_BYTES), ("kStages", D.STAGES)])
+def test_plan_constants_match_the_kernel_source(name, value):
+    src = DISTILL_CU.read_text()
+    assert re.search(rf"constexpr int {name} = (\d+);", src).group(1) == str(value)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("elem", [2, 4])
+def test_tile_walk_covers_every_pixel_once(elem, backward):
+    r = _plan(MAIN_NPIX, elem=elem, backward=backward).tile
+    for npix in (1, 7, r - 1, r, r + 1, MAIN_NPIX):
+        plan = _plan(npix, elem=elem, backward=backward)
+        assert plan.tile == r and plan.n_tiles == -(-npix // r)
+        walk = _tile_walk(npix, plan)
+        assert len(walk) == plan.grid and all(walk)  # no block without a tile
+        counts = np.zeros(npix, np.int64)
+        for ranges in walk:
+            assert ranges == sorted(ranges)  # each block walks forward
+            for start, stop in ranges:
+                assert stop - start <= r
+                counts[start:stop] += 1
+        assert (counts == 1).all(), npix
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("elem", [2, 4])
+def test_plan_fits_shared_memory_for_every_k(elem, backward):
+    for k in range(1, D.MAX_CLASSES + 1):
+        plan = _plan(MAIN_NPIX, k=k, elem=elem, backward=backward)
+        # the ring of STAGES input tiles (four spans each) and, backward, the ds tile
+        assert plan.smem == (4 * D.STAGES + 2 * backward) * plan.tile * k * elem
+        assert plan.smem <= 232_448, (k, plan)
+        assert plan.tile % 8 == 0 and plan.tile % 32 == 0 and 2 * plan.tile <= 1024
+        assert (plan.tile * k * elem) % 16 == 0  # every tile starts a 16-byte chunk
+        assert 1 <= plan.grid <= SMS * (D.THREADS_PER_SM // plan.threads)
+        per_sm = -(-plan.grid // SMS)
+        assert per_sm * (plan.smem + D.SMEM_RESERVED_PER_BLOCK) <= D.SMEM_PER_SM
+
+
+@pytest.mark.parametrize("npix,k,elem,offsets,backward,vec", [
+    (MAIN_NPIX, 19, 2, (0, 0), False, True),  # the path's shape: aug half at byte 52,297,728
+    (MAIN_NPIX, 19, 2, (0, 0, 0), True, True),
+    (MAIN_NPIX, 19, 2, (2, 0), False, False),  # teacher base 2 bytes past alignment
+    (MAIN_NPIX, 19, 2, (0, 8), False, False),
+    (MAIN_NPIX, 19, 2, (0, 0, 2), True, False),  # ds base off alignment
+    (MAIN_NPIX, 19, 2, (16, 32, 48), True, True),
+    (91, 19, 2, (0, 0), False, False),  # (2, 7, 13, 19) bf16: aug half at byte 91·38
+    (91, 19, 4, (0, 0, 0), True, False),  # f32: 91·76 = 6916
+    (99, 16, 2, (0, 0), False, True),  # (2, 9, 11, 16): 99·32 bytes
+    (4, 19, 4, (0, 0), False, True),  # 4·76 = 304 bytes
+    (5, 32, 2, (0, 0, 0), True, True),  # K=32 bf16: 64-byte rows
+    (1, 19, 2, (0, 0), False, False),
+])
+def test_16_byte_path_exactly_when_spans_are_aligned(npix, k, elem, offsets, backward, vec):
+    ptrs = tuple(ALIGNED + o for o in offsets)
+    plan = D.launch_plan(npix, k, elem, SMS, ptrs, backward)
+    assert plan.vec is vec
+    assert vec == ((npix * k * elem) % 16 == 0 and all(p % 16 == 0 for p in ptrs))
