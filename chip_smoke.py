@@ -13,16 +13,19 @@ failure of which exits non-zero:
   1. device: require CUDA; print the card's name and power limit
   2. build: nvcc every kernel source, all at once (``-Xptxas -v`` lines)
   3. GroupNorm kernels (B2a/B2b) against their plain versions on the card,
-     at the eval and train paths' shapes plus two ragged ones, f32 (1e-5)
-     and bf16 (3e-2); f32 channel sums at 1e-5 relative; two runs bitwise
-     equal.  Distillation kernels (B1a/B1b) against theirs, f32 and bf16,
-     at the train path's (6, 512, 896, 19) and at the edges of their tiled
-     design: a ragged (2, 7, 13, 19) whose aug half is not 16-byte aligned,
-     K=16, K=32, fewer pixels than one tile, a whole number of tiles, an
-     offset base pointer; and peaky logits (x10) at the path's shape in
-     bf16.  The loss at 1e-5 relative, the gradient within 1e-5 x max|ds|
-     in f32 and one bf16 ulp in bf16, no teacher gradient, two runs
-     bitwise equal
+     f32 (1e-5) and bf16 (3e-2), at the eval and train paths' shapes and at
+     the edges of B2a's design: ragged, C=64, C=32, one row, fewer rows
+     than one tile, a whole number of tiles, batch 6 with a ragged H·W, a
+     base pointer 16-byte but not 128-byte aligned; f32 channel sums at
+     1e-5 relative; three runs bitwise equal, with B2a's ticket workspace
+     back at zero after each.  Distillation kernels (B1a/B1b) against
+     theirs, f32 and bf16, at the train path's (6, 512, 896, 19) and at the
+     edges of their tiled design: a ragged (2, 7, 13, 19) whose aug half is
+     not 16-byte aligned, K=16, K=32, fewer pixels than one tile, a whole
+     number of tiles, an offset base pointer; and peaky logits (x10) at the
+     path's shape in bf16.  The loss at 1e-5 relative, the gradient within
+     1e-5 x max|ds| in f32 and one bf16 ulp in bf16, no teacher gradient,
+     two runs bitwise equal
   4. tiny-depth model on the card against the same model on the CPU, f32,
      TF32 off: eval logits within 1e-3 of the CPU logits' largest
      magnitude; 3 warm-up steps with the same injected draws: losses at
@@ -44,8 +47,8 @@ failure of which exits non-zero:
   7. kernel timing: per-site GroupNorm and distillation device times
      (CUDA events around back-to-back calls queued behind a sleep kernel)
      against their byte bounds, plain versions and nearest library calls
-     (``torch.addcmul`` for B2b, ``torch.var_mean`` for B2a), with the
-     distillation kernels' launch plans; then the ``kernels`` JSON line,
+     (``torch.addcmul`` for B2b, ``torch.var_mean`` for B2a), with B2a's and
+     the distillation kernels' launch plans; then the ``kernels`` JSON line,
      the card line and the result line
 
 ``--profile DIR`` also writes torch.profiler tables and traces of one
@@ -98,7 +101,17 @@ F32_FLOPS_PER_S = 67e12
 SLEEP_CYCLES_PER_MS = 2_000_000  # torch.cuda._sleep at the H100's clock of at most 1.98 GHz
 GN_SITES = [(1, 129, 257, 256), (1, 65, 129, 256)]  # eval ASPP GN at full / half scale
 GN_TRAIN_SITE = (6, 65, 113, 256)  # the warm-up teacher's ASPP GN, crop 512x896
-CHECK_SHAPES = GN_SITES + [GN_TRAIN_SITE, (2, 17, 29, 256), (2, 8, 16, 64)]
+GN_CHECKS = [  # (shape, base pointer offset in bytes)
+    *((s, 0) for s in GN_SITES + [GN_TRAIN_SITE]),
+    ((2, 17, 29, 256), 0),  # ragged
+    ((2, 8, 16, 64), 0),  # C=64
+    ((2, 9, 11, 32), 0),  # C=32, one channel per group
+    ((1, 1, 1, 256), 0),  # one row: seven of the cluster's eight blocks have none
+    ((1, 3, 5, 256), 0),  # 15 rows, fewer than one tile (32 bf16 / 16 f32 rows)
+    ((1, 16, 32, 256), 0),  # 512 rows: one whole tile per block in both dtypes
+    ((6, 7, 13, 256), 0),  # batch 6, ragged H·W: six tickets
+    ((2, 17, 29, 256), 16),  # base 16-byte but not 128-byte aligned
+]
 DISTILL_SHAPE = (6, 512, 896, 19)  # the warm-up path's upsampled [clean; aug] logits
 BOTH = (torch.float32, torch.bfloat16)
 DISTILL_CHECKS = [  # (shape, dtypes, logit scale, base pointer offset in elements)
@@ -175,14 +188,27 @@ def seeded_state_dict(model: DeepLabV2, seed: int) -> dict:
     return sd
 
 
-def gn_inputs(shape, dtype, seed, device="cuda"):
+def gn_inputs(shape, dtype, seed, offset=0, device="cuda"):
+    """Seeded x, scale, bias; ``offset`` > 0 places x that many bytes into a
+    larger buffer (contiguous, base pointer moved off 128-byte alignment)."""
     rng = np.random.default_rng(seed)
     c = shape[-1]
     x = (rng.normal(size=shape) + rng.uniform(-2, 2, size=(c,))).astype(np.float32)
     scale = (rng.normal(size=(c,)) * 0.1 + 1.0).astype(np.float32)
     bias = (rng.normal(size=(c,)) * 0.1).astype(np.float32)
-    return (torch.from_numpy(x).to(device, dtype), torch.from_numpy(scale).to(device),
-            torch.from_numpy(bias).to(device), x)
+    xt = torch.from_numpy(x).to(device, dtype)
+    if offset:
+        k = offset // xt.element_size()
+        buf = torch.empty(xt.numel() + k, device=device, dtype=dtype)
+        buf[k:] = xt.reshape(-1)
+        xt = buf[k:].view(shape)
+    return (xt, torch.from_numpy(scale).to(device), torch.from_numpy(bias).to(device), x)
+
+
+def gn_plan(x: torch.Tensor):
+    """B2a's launch plan on x, as the wrapper makes it."""
+    b, h, w, c = x.shape
+    return G.stats_plan(b, h * w, c, x.element_size(), G.max_clusters(x.device.index, x.dtype, c))
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -211,23 +237,29 @@ def phase_build() -> None:
 def phase_kernels_vs_plain() -> dict:
     """Returns, per kernel, the largest |kernel - plain| at the path's sites (bf16)."""
     errs = {name: 0.0 for name in G.launches}  # the GroupNorm pair
-    for i, shape in enumerate(CHECK_SHAPES):
+    for i, (shape, offset) in enumerate(GN_CHECKS):
         for dtype in (torch.float32, torch.bfloat16):
-            x, sc, bi, x_np = gn_inputs(shape, dtype, seed=100 + i)
+            x, sc, bi, x_np = gn_inputs(shape, dtype, seed=100 + i, offset=offset)
             tol = TOL[dtype]
+            tag = (f"shape={shape} dtype={str(dtype).split('.')[-1]}"
+                   + (f" base offset {offset} B" if offset else ""))
+            require(x.data_ptr() % 16 == 0 and (offset == 0) == (x.data_ptr() % 128 == 0),
+                    f"base pointer alignment at {tag}")
             with torch.inference_mode():
                 runs = []
-                for _ in range(2):
+                for _ in range(3):
                     st = G.group_norm_stats(x, sc, bi)
                     runs.append((*st, G.group_norm_apply(x, st[2], st[3])))
+                    torch.cuda.synchronize()
+                    require(not bool(G.ticket_workspace(x.device).any()),
+                            f"B2a's tickets not back at zero after a call at {tag}")
                 s, s2, mul, add, y = runs[0]
                 ps, ps2, pmul, padd = G.group_norm_stats_plain(x, sc, bi)
                 py_apply = G.group_norm_apply_plain(x, mul, add)
                 py = G.group_norm_plain(x, sc, bi)
             torch.cuda.synchronize()
-            tag = f"shape={shape} dtype={str(dtype).split('.')[-1]}"
-            require(all(torch.equal(a, b) for a, b in zip(*runs)),
-                    f"kernel results differ between two runs at {tag}")
+            require(all(torch.equal(a, b) for r in runs[1:] for a, b in zip(runs[0], r)),
+                    f"kernel results differ between three runs at {tag}")
             require(y.dtype == dtype and y.shape == x.shape, f"output dtype/shape at {tag}")
             if dtype == torch.float32:
                 xq = x_np.astype(np.float64)
@@ -243,12 +275,24 @@ def phase_kernels_vs_plain() -> dict:
             e_stats = max(max_err(mul, pmul), max_err(add, padd))
             e_apply = max_err(y, py_apply)
             print(f"check {tag}: stats max_abs_err={e_stats:.3e} apply max_abs_err={e_apply:.3e} "
-                  f"group_norm max_abs_err={max_err(y, py):.3e} tol={tol} bitwise-repeatable",
-                  flush=True)
+                  f"group_norm max_abs_err={max_err(y, py):.3e} tol={tol} bitwise-repeatable x3, "
+                  f"tickets zero | B2a plan {gn_plan(x).describe()}", flush=True)
             if shape in GN_SITES + [GN_TRAIN_SITE] and dtype == torch.bfloat16:
                 errs["group_norm_stats"] = max(errs["group_norm_stats"], e_stats)
                 errs["group_norm_apply"] = max(errs["group_norm_apply"], e_apply)
     return errs
+
+
+def gn_site_inputs(shape, gen, dtype=torch.bfloat16):
+    """Enough seeded copies of x at a path site to exceed the 50 MB L2 when
+    cycled, and f32 scale/bias."""
+    c = shape[-1]
+    n_buf = max(2, math.ceil(120e6 / (math.prod(shape) * 2)))
+    xs = [(torch.randn(shape, generator=gen, device="cuda") + 1.0).to(dtype)
+          for _ in range(n_buf)]
+    sc = torch.rand(c, generator=gen, device="cuda") + 0.5
+    bi = torch.randn(c, generator=gen, device="cuda") * 0.1
+    return xs, sc, bi
 
 
 def phase_model_gpu_vs_cpu() -> None:
@@ -429,11 +473,7 @@ def phase_gn_timing(card: str) -> dict:
         b, h, w, c = shape
         numel = b * h * w * c
         xb = numel * 2
-        n_buf = max(2, math.ceil(120e6 / xb))
-        xs = [(torch.randn(shape, generator=gen, device="cuda") + 1.0).to(dtype)
-              for _ in range(n_buf)]
-        sc = torch.rand(c, generator=gen, device="cuda") + 0.5
-        bi = torch.randn(c, generator=gen, device="cuda") * 0.1
+        xs, sc, bi = gn_site_inputs(shape, gen, dtype)
         sc16, bi16 = sc.to(dtype), bi.to(dtype)
         with torch.inference_mode():
             ma = [G.group_norm_stats_plain(x, sc, bi)[2:] for x in xs]
@@ -466,23 +506,27 @@ def phase_gn_timing(card: str) -> dict:
             dev, call = t[key]
             return f"{dev:.2f} (call {call:.2f})"
 
+        plan = gn_plan(xs[0])
         print(f"gn_site shape={shape} bf16, device us (call us): group_norm {fmt('gn')} "
               f"bound {bounds['gn'][0]:.2f} by {bounds['gn'][1]} share "
               f"{bounds['gn'][0] / t['gn'][0]:.2f}, plain {fmt('gn_plain')}, "
               f"F.group_norm {fmt('gn_library')} | stats {fmt('stats')} bound "
-              f"{bounds['stats'][0]:.2f}, plain {fmt('stats_plain')}, torch.var_mean "
-              f"{fmt('stats_library')} | apply {fmt('apply')} "
-              f"bound {bounds['apply'][0]:.2f}, plain {fmt('apply_plain')}, torch.addcmul "
-              f"{fmt('apply_library')} | card={card}", flush=True)
-        if shape == GN_SITES[0]:
-            for name, key, lib in (("group_norm_stats", "stats", "stats_library"),
-                                   ("group_norm_apply", "apply", "apply_library")):
-                per_kernel[name] = {
-                    "shape": list(shape), "ms": t[key][0] / 1e3,
+              f"{bounds['stats'][0]:.2f} share {bounds['stats'][0] / t['stats'][0]:.2f}, plain "
+              f"{fmt('stats_plain')}, torch.var_mean {fmt('stats_library')} | apply "
+              f"{fmt('apply')} bound {bounds['apply'][0]:.2f}, plain {fmt('apply_plain')}, "
+              f"torch.addcmul {fmt('apply_library')} | stats plan {plan.describe()} "
+              f"| card={card}", flush=True)
+        for name, key, lib in (("group_norm_stats", "stats", "stats_library"),
+                               ("group_norm_apply", "apply", "apply_library")):
+            site = {"shape": list(shape), "ms": t[key][0] / 1e3,
                     "plain_ms": t[key + "_plain"][0] / 1e3,
                     "bound_ms": bounds[key][0] / 1e3, "bound_by": bounds[key][1],
-                    "library_ms": None if lib is None else t[lib][0] / 1e3,
-                    "call_ms": t[key][1] / 1e3}
+                    "library_ms": t[lib][0] / 1e3, "call_ms": t[key][1] / 1e3}
+            if name == "group_norm_stats":
+                site["plan"] = plan.describe()
+            if shape == GN_SITES[0]:  # the kernel's row: the eval's full-scale site
+                per_kernel[name] = {**site, "sites": []}
+            per_kernel[name]["sites"].append(site)
         del xs, ma, full, app, lib_app, nchw
     return per_kernel
 

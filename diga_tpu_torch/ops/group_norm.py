@@ -16,13 +16,16 @@ the FusedGroupNorm formula (E[x²] − mean², mul/add cast to x's dtype), not
 where autograd would need a backward.
 
 Each wrapper adds one to ``launches[<name>]`` when it launches its
-kernel; ``group_norm_stats`` issues two launches (partials, then the
-ordered reduction and group fold) per call.
+kernel; ``group_norm_stats`` is one launch per call (the block that draws
+an image's last ticket folds it).  ``stats_plan`` chooses that launch's
+grid around the kernel's fixed tile, ring and cluster; it is plain Python,
+so the CPU tests hold it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -32,9 +35,18 @@ from .stats import sums_and_squares
 
 launches = {"group_norm_stats": 0, "group_norm_apply": 0}
 
-_MAX_VECTORS_PER_ROW = 1024  # C / (16 bytes / element size): one thread each
-_MAX_GROUP_CHANNELS = 256  # C / groups: one fold-kernel thread each
+_MAX_VECTORS_PER_ROW = 1024  # C / (16 bytes / element size)
+_MAX_GROUP_CHANNELS = 256  # C / groups
 _APPLY_THREADS = 256
+
+# group_norm.cu's B2a constants (a CPU test holds them equal to the source):
+# tiles of 16 KB (32 bf16 rows of 256 channels), six in flight per block,
+# clusters of eight blocks, 256 threads a block where a row allows (so B2a
+# takes at most THREADS 16-byte vectors a row)
+TILE_BYTES = 16384
+STAGES = 6
+CLUSTER = 8
+THREADS = 256
 
 
 def reset_launches() -> None:
@@ -46,8 +58,10 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = native.load("group_norm")
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.gn_stats.argtypes = [i, p, i, i, i, i, i, i, f, f, p, p, p, p, p, p, p, p]
+    lib.gn_stats.argtypes = [i, p, i, i, i, i, i, f, f, p, p, p, p, p, p, p, p, p]
     lib.gn_stats.restype = i
+    lib.gn_stats_max_clusters.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.gn_stats_max_clusters.restype = i
     lib.gn_apply.argtypes = [i, p, p, p, p, ll, i, ll, i, p]
     lib.gn_apply.restype = i
     return lib
@@ -124,8 +138,160 @@ def group_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# B2a's launch plan (plain Python; group_norm.cu repeats the formulas)
+# ---------------------------------------------------------------------------
+
+def tile_rows(c: int, elem: int) -> int:
+    """Rows of one ring stage: ``TILE_BYTES`` of whole rows, at least one."""
+    return max(1, TILE_BYTES // (c * elem))
+
+
+def block_threads(c: int, elem: int) -> int:
+    """One thread per 16-byte vector of a row (at most ``THREADS`` vectors),
+    in as many lanes of rows as fit in ``THREADS``."""
+    nv = c * elem // 16
+    return THREADS // nv * nv
+
+
+def scratch_bytes(c: int, elem: int) -> int:
+    """What the ring is reused as after the last tile: the lanes' rows
+    [2][lanes][C] f32 with the receive buffer [CLUSTER][2][C/CLUSTER] f32,
+    later the fold's [lanes][C/16] float4."""
+    threads = block_threads(c, elem)
+    lanes = threads // (c * elem // 16)
+    return max(8 * lanes * c + 8 * c, 16 * max(threads, c // 16))
+
+
+def smem_bytes(c: int, elem: int) -> int:
+    """Dynamic shared memory of one block: the ring of ``STAGES`` tiles,
+    or the scratch where that is larger."""
+    return max(STAGES * TILE_BYTES, scratch_bytes(c, elem))
+
+
+def check_stats_kernel(c: int, elem: int, num_groups: int) -> None:
+    """Raise where B2a's kernel cannot take C channels of ``elem`` bytes in
+    ``num_groups`` groups (the plain version and B2b can)."""
+    if c * elem // 16 > THREADS:
+        raise ValueError(f"group_norm: C={c} is too wide for the statistics kernel (at most "
+                         f"{THREADS} 16-byte vectors a row, one thread each)")
+    if num_groups % CLUSTER:
+        raise ValueError(f"group_norm: the CUDA kernel folds the groups in {CLUSTER} slices of "
+                         f"C, so num_groups={num_groups} must be a multiple of {CLUSTER}")
+
+
+@dataclasses.dataclass(frozen=True)
+class StatsPlan:
+    batch: int
+    hw: int
+    c: int
+    elem: int
+    clusters: int  # per image; chunks = CLUSTER·clusters blocks per image
+
+    @property
+    def chunks(self) -> int:
+        return CLUSTER * self.clusters
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        return self.chunks, self.batch
+
+    @property
+    def tile_rows(self) -> int:
+        return tile_rows(self.c, self.elem)
+
+    @property
+    def threads(self) -> int:
+        return block_threads(self.c, self.elem)
+
+    @property
+    def smem(self) -> int:
+        return smem_bytes(self.c, self.elem)
+
+    def chunk_rows(self, chunk: int) -> tuple[int, int]:
+        """[r0, r1): the rows of each image that block ``chunk`` sums (an
+        even split, to a row, as the kernel computes it)."""
+        return chunk * self.hw // self.chunks, (chunk + 1) * self.hw // self.chunks
+
+    def describe(self) -> str:
+        return (f"tile_rows={self.tile_rows} stages={STAGES} cluster={CLUSTER} "
+                f"grid={self.grid} threads={self.threads} smem={self.smem} B")
+
+
+@functools.cache
+def stats_plan(batch: int, hw: int, c: int, elem: int, max_clusters: int) -> StatsPlan:
+    """B2a's launch for ``batch`` images of ``hw`` rows of C channels,
+    ``elem`` bytes each, where ``max_clusters`` clusters fit on the card at
+    once (``gn_stats_max_clusters``).  The resident clusters are shared out
+    over the images, at least one per image and at most one per ``CLUSTER``
+    tiles of an image, so that no cluster idles and the fold stays short."""
+    n_tiles = -(-hw // tile_rows(c, elem))
+    clusters = max(1, min(max_clusters // batch, -(-n_tiles // CLUSTER)))
+    return StatsPlan(batch=batch, hw=hw, c=c, elem=elem, clusters=clusters)
+
+
+@functools.cache
+def max_clusters(device_index: int, dtype: torch.dtype, c: int) -> int:
+    """Clusters of B2a's blocks for C channels that fit on the card at once.
+    The C entry also allows the kernel its shared memory on the device, so
+    this runs before B2a's first launch there."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _lib().gn_stats_max_clusters(native.DTYPE_CODES[dtype], c, ctypes.byref(out))
+    if err or out.value < 1:
+        raise RuntimeError(f"gn_stats: cluster occupancy query failed (CUDA error {err}, "
+                           f"{out.value} clusters)")
+    return out.value
+
+
+# zeroed tickets, CLUSTER per image (one per slice of the channels), for
+# each (device, stream); the kernel leaves them zeroed, so two calls on one
+# stream reuse them and two streams never share them
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def ticket_workspace(device: torch.device, n: int = 0, stream: int | None = None) -> torch.Tensor:
+    """The int32 tickets of ``stream`` (by default ``device``'s current
+    stream), at least ``n`` of them."""
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 8 * CLUSTER), device=device, dtype=torch.int32)
+        _tickets[key] = t
+    return t
+
+
+# ---------------------------------------------------------------------------
 # wrappers: kernel on CUDA tensors, plain version on CPU tensors
 # ---------------------------------------------------------------------------
+
+def _stats_kernel(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int,
+                  eps: float):
+    b, h, w, c = x.shape
+    hw = h * w
+    check_stats_kernel(c, x.element_size(), num_groups)
+    plan = stats_plan(b, hw, c, x.element_size(), max_clusters(x.device.index, x.dtype, c))
+    # one f32 buffer: cluster rows [b, clusters, 2, c], then Σx [b, c], Σx² [b, c];
+    # one x.dtype buffer: mul [b, c], add [b, c] (every piece 16-byte aligned)
+    n_part = 2 * b * plan.clusters * c
+    f32 = torch.empty(n_part + 2 * b * c, device=x.device, dtype=torch.float32)
+    sums, sumsq = f32[n_part:].view(2, b, c).unbind(0)
+    mul, add = torch.empty((2, b, c), device=x.device, dtype=x.dtype).unbind(0)
+    scale = scale.to(torch.float32).contiguous()
+    bias = bias.to(torch.float32).contiguous()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    tickets = ticket_workspace(x.device, b * CLUSTER, stream)
+    _check_aligned(x)
+    err = native.launch(x, _lib().gn_stats, native.DTYPE_CODES[x.dtype], x.data_ptr(), b, hw, c,
+                        num_groups, plan.chunks, float(hw * (c // num_groups)), eps,
+                        scale.data_ptr(), bias.data_ptr(), f32.data_ptr(), tickets.data_ptr(),
+                        sums.data_ptr(), sumsq.data_ptr(), mul.data_ptr(), add.data_ptr(),
+                        stream=stream)
+    if err:
+        raise RuntimeError(f"gn_stats kernel launch failed: CUDA error {err}")
+    return sums, sumsq, mul, add
+
 
 def group_norm_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      num_groups: int = 32, eps: float = 1e-5):
@@ -134,28 +300,9 @@ def group_norm_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     _check_affine(x, scale, bias)
     if native.on_cpu(x):
         return group_norm_stats_plain(x, scale, bias, num_groups, eps)
-    b, h, w, c = x.shape
-    hw = h * w
-    # about two blocks per SM over the whole batch, at least 32 rows each
-    rows = max(32, -(-(b * hw) // (2 * native.sm_count(x.device.index))))
-    n_chunks = -(-hw // rows)
-    # one f32 buffer: partials [2, b, n_chunks, c], then Σx [b, c], Σx² [b, c];
-    # one x.dtype buffer: mul [b, c], add [b, c] (every piece 16-byte aligned)
-    n_part = 2 * b * n_chunks * c
-    f32 = torch.empty(n_part + 2 * b * c, device=x.device, dtype=torch.float32)
-    sums, sumsq = f32[n_part:].view(2, b, c).unbind(0)
-    mul, add = torch.empty((2, b, c), device=x.device, dtype=x.dtype).unbind(0)
-    scale = scale.to(torch.float32).contiguous()
-    bias = bias.to(torch.float32).contiguous()
-    _check_aligned(x)
-    err = native.launch(x, _lib().gn_stats, native.DTYPE_CODES[x.dtype], x.data_ptr(), b, hw,
-                        c, num_groups, rows, n_chunks, float(hw * (c // num_groups)), eps,
-                        scale.data_ptr(), bias.data_ptr(), f32.data_ptr(), sums.data_ptr(),
-                        sumsq.data_ptr(), mul.data_ptr(), add.data_ptr())
-    if err:
-        raise RuntimeError(f"gn_stats kernel launch failed: CUDA error {err}")
+    out = _stats_kernel(x, scale, bias, num_groups, eps)
     launches["group_norm_stats"] += 1
-    return sums, sumsq, mul, add
+    return out
 
 
 def group_norm_apply(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor) -> torch.Tensor:

@@ -101,9 +101,11 @@ def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def launch(x: torch.Tensor, fn, *args) -> int:
-    """Call the C entry ``fn(*args, stream)`` on x's device and current stream."""
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+def launch(x: torch.Tensor, fn, *args, stream: int | None = None) -> int:
+    """Call the C entry ``fn(*args, stream)`` on x's device, on ``stream``
+    (by default the device's current stream)."""
+    if stream is None:
+        stream = torch.cuda.current_stream(x.device).cuda_stream
     if x.device.index == torch.cuda.current_device():
         return fn(*args, stream)
     with torch.cuda.device(x.device):
