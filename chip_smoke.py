@@ -4,55 +4,79 @@
     python3 chip_smoke.py [--profile DIR]
 
 Run from the root of a checkout.  It builds the CUDA kernels from the
-sources in the checkout and drives the port's two main paths at full
-width on the card: the two-scale evaluation of DeepLabV2-R101 through
-``diga_tpu_torch.cli.evaluate_val``, and the GTA5->Cityscapes warm-up
-train step through ``diga_tpu_torch.cli.train_warm_up``.  Phases, any
+sources in the checkout and drives the port's main paths at full width on
+the card, each through the CLI a user would call: the two-scale
+evaluation of DeepLabV2-R101 (``evaluate_val``), the GTA5->Cityscapes
+warm-up (``train_warm_up``), the self-training chain from the warm-up's
+weights (``pseudolabel_generator`` -> ``calc_centroids`` ->
+``train_self_training``) and the DG stage (``train_dg``).  Phases, any
 failure of which exits non-zero:
 
   1. device: require CUDA; print the card's name and power limit
   2. build: nvcc every kernel source, all at once (``-Xptxas -v`` lines)
   3. GroupNorm kernels (B2a/B2b) against their plain versions on the card,
-     f32 (1e-5) and bf16 (3e-2), at the eval and train paths' shapes and at
-     the edges of B2a's design: ragged, C=64, C=32, one row, fewer rows
-     than one tile, a whole number of tiles, batch 6 with a ragged H·W, a
-     base pointer 16-byte but not 128-byte aligned; f32 channel sums at
-     1e-5 relative; three runs bitwise equal, with B2a's ticket workspace
-     back at zero after each.  Distillation kernels (B1a/B1b) against
-     theirs, f32 and bf16, at the train path's (6, 512, 896, 19) and at the
-     edges of their tiled design: a ragged (2, 7, 13, 19) whose aug half is
-     not 16-byte aligned, K=16, K=32, fewer pixels than one tile, a whole
-     number of tiles, an offset base pointer; and peaky logits (x10) at the
-     path's shape in bf16.  The loss at 1e-5 relative, the gradient within
-     1e-5 x max|ds| in f32 and one bf16 ulp in bf16, no teacher gradient,
-     two runs bitwise equal
+     f32 (1e-5) and bf16 (3e-2), at the paths' shapes (the eval's
+     (1, 129, 257, 256) and (1, 65, 129, 256), the teachers' (6, 65, 113,
+     256), (3, 65, 113, 256) and (8, 65, 113, 256)) and at the edges of
+     B2a's design: ragged, C=64, C=32, one row, fewer rows than one tile, a
+     whole number of tiles, batch 6 with a ragged H·W, a base pointer
+     16-byte but not 128-byte aligned; f32 channel sums at 1e-5 relative;
+     three runs bitwise equal, with B2a's ticket workspace back at zero
+     after each.  Distillation kernels (B1a/B1b) against theirs, f32 and
+     bf16, at the train paths' (6, 512, 896, 19) and (8, 512, 896, 19),
+     both on the 16-byte launch plan, and at the edges of their tiled
+     design: a ragged (2, 7, 13, 19) whose aug half is not 16-byte aligned,
+     K=16, K=32, fewer pixels than one tile, a whole number of tiles, an
+     offset base pointer; and peaky logits (x10) at (6, 512, 896, 19) in
+     bf16.  The loss at 1e-5 relative, the gradient within 1e-5 x max|ds|
+     in f32 and one bf16 ulp in bf16, no teacher gradient, two runs bitwise
+     equal
   4. tiny-depth model on the card against the same model on the CPU, f32,
      TF32 off: eval logits within 1e-3 of the CPU logits' largest
-     magnitude; 3 warm-up steps with the same injected draws: losses at
-     1e-4 relative, parameters within 1e-5, BN running statistics within
-     1e-4 + 1e-3 x |value| (cuDNN's f32 conv algorithms)
+     magnitude; 3 warm-up, 3 DG and 3 self-training steps with the same
+     injected draws: losses at 1e-4 relative, ``consensus_kept`` within
+     1e-3, parameters within 1e-5, BN running statistics within 1e-4 +
+     1e-3 x |value| (cuDNN's f32 conv algorithms), centroid counts equal
+     and vectors within 1e-5 + 1e-4 x |value|
   5. main path, eval: full-width R101 (random weights from a numpy seed,
      saved as student.pth), two synthetic 1024x2048 Cityscapes val images,
-     evaluate_val in bf16; launch counts of every kernel read around it;
-     finite two-scale logits whose argmax matches the dumped predictions;
-     eval timing (GroupNorm kernel vs plain, in turns), peak memory
-  6. main path, training: train_warm_up with preset gta2city_warmup at full
+     evaluate_val in bf16; finite two-scale logits whose argmax matches the
+     dumped predictions; eval timing (GroupNorm kernel vs plain, in turns),
+     peak memory
+  6. main path, warm-up: train_warm_up with preset gta2city_warmup at full
      width (R101, bf16, source 1 + 2 GTA5 images at 720x1280 and
      1052x1914, target 1 + 2 Cityscapes images at 512x1024 and 1024x2048,
-     crop 512x896, random seeded translator, 3 steps); launch counts of
-     every kernel read around it; finite losses; the exported student.pth
-     loads strictly into the eval model.  Then the step timed on one batch
-     on the card (distillation kernel vs plain, in turns): ms/step, source
-     imgs/s, peak memory
-  7. kernel timing: per-site GroupNorm and distillation device times
+     crop 512x896, random seeded translator, 3 steps); finite losses; the
+     exported student.pth loads strictly into the eval model.  Then the
+     step timed on one batch (distillation kernel vs plain, in turns):
+     ms/step, source imgs/s, peak memory
+  7. main paths, self-training chain and DG, at full width from the
+     warm-up's weights, on two 1024x2048 Cityscapes train images:
+     pseudolabel_generator (preset gta2city_warmup) writes P-mode PNGs into
+     <target_root>/pseudo_train_warm_up; calc_centroids (one epoch) writes
+     finite (19, 256) centroids; train_self_training (preset
+     gta2city_selftrain: source 2 + 1, target 2 + 1 with the pseudo-labels,
+     3 steps) logs finite losses and a consensus_kept in [0, 1]; train_dg
+     (preset dg_gta5: source 2 + 2, target 2 + 2, 3 steps).  Then the
+     pseudo-label ms/img and the self-training and DG steps timed as in 6
+  8. kernel timing: per-site GroupNorm and distillation device times
      (CUDA events around back-to-back calls queued behind a sleep kernel)
      against their byte bounds, plain versions and nearest library calls
      (``torch.addcmul`` for B2b, ``torch.var_mean`` for B2a), with B2a's and
      the distillation kernels' launch plans; then the ``kernels`` JSON line,
      the card line and the result line
 
+Every main path runs with every kernel's launch count set to 0 just before
+it and read just after, and requires per run (B1a, B1b, B2a, B2b):
+evaluate_val (2 images) 0, 0, 24, 24; train_warm_up (3 steps) 3, 3, 18,
+18; pseudolabel_generator (2 images) 0, 0, 24, 24; calc_centroids (2
+images) 0, 0, 12, 12; train_self_training (3 steps) 3, 3, 36, 36;
+train_dg (3 steps) 3, 3, 18, 18.  A kernel's ``launches`` in the JSON line
+is its sum over these runs.
+
 ``--profile DIR`` also writes torch.profiler tables and traces of one
-two-scale eval and of one warm-up step into DIR, with their busy shares.
+two-scale eval and of one warm-up, self-training and DG step into DIR,
+with their busy shares.
 """
 
 from __future__ import annotations
@@ -73,7 +97,8 @@ import torch
 import torch.nn.functional as F
 from PIL import Image
 
-from diga_tpu_torch.cli import evaluate_val, train_warm_up
+from diga_tpu_torch.cli import (calc_centroids, evaluate_val, pseudolabel_generator, train_dg,
+                                train_self_training, train_warm_up)
 from diga_tpu_torch.configs.presets import get_preset
 from diga_tpu_torch.data import cityscapes_dataset, synthetic
 from diga_tpu_torch.eval.evaluator import two_scale_logits
@@ -84,14 +109,16 @@ from diga_tpu_torch.ops import distill as D
 from diga_tpu_torch.ops import group_norm as G
 from diga_tpu_torch.ops import mixing, native
 from diga_tpu_torch.ops import photometric as P
+from diga_tpu_torch.ops.prototypes import Centroids
 from diga_tpu_torch.ops.losses import distillation_loss as plain_distillation_loss
 from diga_tpu_torch.ops.metrics import confusion_update
-from diga_tpu_torch.train.build import build_eval, build_experiment
+from diga_tpu_torch.train.build import build_eval, build_experiment, wants_target
 from diga_tpu_torch.train.loop import make_train_iterator, to_device
 from diga_tpu_torch.train.optim import sgd_grouped
 from diga_tpu_torch.train.schedules import poly_schedule
 from diga_tpu_torch.train.state import create_seg_state
-from diga_tpu_torch.train.steps import StepConfig, build_warmup_step
+from diga_tpu_torch.train.steps import (StepConfig, build_dg_step, build_selftrain_step,
+                                        build_warmup_step)
 from diga_tpu_torch.utils.checkpoint import export_role_keyed
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
@@ -100,9 +127,14 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 SLEEP_CYCLES_PER_MS = 2_000_000  # torch.cuda._sleep at the H100's clock of at most 1.98 GHz
 GN_SITES = [(1, 129, 257, 256), (1, 65, 129, 256)]  # eval ASPP GN at full / half scale
-GN_TRAIN_SITE = (6, 65, 113, 256)  # the warm-up teacher's ASPP GN, crop 512x896
+GN_TRAIN_SITES = [
+    (6, 65, 113, 256),  # the warm-up's and self-training's teacher on [source; mix], crop 512x896
+    (3, 65, 113, 256),  # the self-training teacher on the target
+    (8, 65, 113, 256),  # the DG teacher on [source; view]
+]
+GN_PATH_SITES = GN_SITES + GN_TRAIN_SITES
 GN_CHECKS = [  # (shape, base pointer offset in bytes)
-    *((s, 0) for s in GN_SITES + [GN_TRAIN_SITE]),
+    *((s, 0) for s in GN_PATH_SITES),
     ((2, 17, 29, 256), 0),  # ragged
     ((2, 8, 16, 64), 0),  # C=64
     ((2, 9, 11, 32), 0),  # C=32, one channel per group
@@ -112,10 +144,13 @@ GN_CHECKS = [  # (shape, base pointer offset in bytes)
     ((6, 7, 13, 256), 0),  # batch 6, ragged H·W: six tickets
     ((2, 17, 29, 256), 16),  # base 16-byte but not 128-byte aligned
 ]
-DISTILL_SHAPE = (6, 512, 896, 19)  # the warm-up path's upsampled [clean; aug] logits
+DISTILL_SHAPE = (6, 512, 896, 19)  # warm-up/self-training upsampled [clean; aug] logits
+DISTILL_DG_SHAPE = (8, 512, 896, 19)  # the DG step's, 4 source images
+DISTILL_SITES = [DISTILL_SHAPE, DISTILL_DG_SHAPE]
 BOTH = (torch.float32, torch.bfloat16)
 DISTILL_CHECKS = [  # (shape, dtypes, logit scale, base pointer offset in elements)
     (DISTILL_SHAPE, BOTH, 3.0, 0),
+    (DISTILL_DG_SHAPE, BOTH, 3.0, 0),
     ((2, 7, 13, 19), BOTH, 3.0, 0),  # ragged; the aug half starts at 91·K·elem, not 16-aligned
     ((2, 9, 11, 16), BOTH, 3.0, 0),  # K=16 (SYNTHIA)
     ((2, 8, 16, 32), BOTH, 3.0, 0),  # K=32, the largest tiles
@@ -126,10 +161,15 @@ DISTILL_CHECKS = [  # (shape, dtypes, logit scale, base pointer offset in elemen
 ]
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 PRESET = "gta2city_warmup"
+SELFTRAIN_PRESET = "gta2city_selftrain"
+DG_PRESET = "dg_gta5"
+PSEUDO_DIR = "pseudo_train_warm_up"  # the self-training preset's pseudo_dir
 OUT_HW, DS_HW = (1024, 2048), (512, 1024)
 N_IMAGES = 2
 SEED = 0
 TRAIN_STEPS = 3
+TRAIN_PATHS = ("train_warm_up", "train_self_training", "train_dg")
+DEVICE = torch.device("cuda")  # the main paths' device, passed to every CLI as --device
 TPU_KERNELS = {  # name: (id, source, the TPU kernel it replaces)
     "distill_loss": ("B1a", "diga_tpu_torch/csrc/distill.cu", "diga_tpu/ops/pallas_kernels.py:35"),
     "distill_grad": ("B1b", "diga_tpu_torch/csrc/distill.cu", "diga_tpu/ops/pallas_kernels.py:85"),
@@ -277,7 +317,7 @@ def phase_kernels_vs_plain() -> dict:
             print(f"check {tag}: stats max_abs_err={e_stats:.3e} apply max_abs_err={e_apply:.3e} "
                   f"group_norm max_abs_err={max_err(y, py):.3e} tol={tol} bitwise-repeatable x3, "
                   f"tickets zero | B2a plan {gn_plan(x).describe()}", flush=True)
-            if shape in GN_SITES + [GN_TRAIN_SITE] and dtype == torch.bfloat16:
+            if shape in GN_PATH_SITES and dtype == torch.bfloat16:
                 errs["group_norm_stats"] = max(errs["group_norm_stats"], e_stats)
                 errs["group_norm_apply"] = max(errs["group_norm_apply"], e_apply)
     return errs
@@ -469,7 +509,7 @@ def phase_gn_timing(card: str) -> dict:
     dtype = torch.bfloat16
     per_kernel = {}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    for shape in GN_SITES + [GN_TRAIN_SITE]:
+    for shape in GN_PATH_SITES:
         b, h, w, c = shape
         numel = b * h * w * c
         xb = numel * 2
@@ -620,34 +660,46 @@ def phase_distill_vs_plain() -> dict:
                    else f"one bf16 ulp of max|ds|={tol_v:.3e}")
             require(ok, f"ds off at {tag}: max_abs_err {float(diff.max()):.3e}, tol {tol}")
             plans = distill_plans(t, s)
+            require(shape not in DISTILL_SITES or all(p.vec for p in plans),
+                    f"the path's shape must take the 16-byte copies at {tag}: {plans}")
             print(f"check distill {tag}: loss {float(loss[0]):.6f} rel_err "
                   f"{e_loss / abs(float(ref)):.2e} | ds max_abs_err {float(diff.max()):.3e} "
                   f"tol {tol} | teacher grad None | bitwise-repeatable | plan loss "
                   f"{plans[0].describe()}; grad {plans[1].describe()}", flush=True)
-            if (shape, dtype, logit_scale) == (DISTILL_SHAPE, torch.bfloat16, 3.0):
-                errs = {"distill_loss": e_loss, "distill_grad": float(diff.max())}
+            if shape in DISTILL_SITES and (dtype, logit_scale) == (torch.bfloat16, 3.0):
+                errs = {"distill_loss": max(errs["distill_loss"], e_loss),
+                        "distill_grad": max(errs["distill_grad"], float(diff.max()))}
             del t, s, loss, ds, ref, ref_ds, tt, st
     return errs
 
 
-def tiny_warmup(device: str, model_sd: dict, translator_sd: dict):
-    """3-step-ready tiny warm-up state on ``device`` and its step (f32)."""
+def tiny_train(stage: str, device: str, model_sd: dict, translator_sd: dict,
+               centroids: Centroids):
+    """A tiny f32 train state of ``stage`` on ``device`` and its step."""
     student = DeepLabV2(19, (1, 1, 1, 1), droprate=0.0)
     student.load_state_dict(model_sd, strict=True)
-    enc, dec = ImgEncoder(dim=16, n_res=1), ImgDecoder(dim=64, n_res=1)
-    enc.load_state_dict(translator_sd["enc_s"], strict=True)
-    dec.load_state_dict(translator_sd["dec_s2t"], strict=True)
+    translator = None
+    if stage != "dg":
+        enc, dec = ImgEncoder(dim=16, n_res=1), ImgDecoder(dim=64, n_res=1)
+        enc.load_state_dict(translator_sd["enc_s"], strict=True)
+        dec.load_state_dict(translator_sd["dec_s2t"], strict=True)
+        translator = torch.nn.ModuleDict({"enc_s": enc, "dec_s2t": dec}).to(device)
     student.to(device)
     opt = sgd_grouped(student, 2.5e-4)
-    state = create_seg_state(student, opt, SEED, torch.nn.ModuleDict(
-        {"enc_s": enc, "dec_s2t": dec}).to(device))
-    cfg = StepConfig(crop_hw=(64, 128), beta=0.4, tgt_stats_forward=True,
-                     compute_dtype=torch.float32)
-    return state, build_warmup_step(cfg, poly_schedule(2.5e-4, 100))
+    state = create_seg_state(student, opt, SEED, translator,
+                             centroids if stage == "selftrain" else None)
+    cfg = StepConfig(crop_hw=(64, 128), beta=0.4, tgt_stats_forward=stage != "selftrain",
+                     with_sharpness=stage != "dg", compute_dtype=torch.float32)
+    build = {"warmup": build_warmup_step, "dg": build_dg_step,
+             "selftrain": build_selftrain_step}[stage]
+    return state, build(cfg, poly_schedule(2.5e-4, 100))
 
 
-def phase_warmup_gpu_vs_cpu() -> None:
-    """The tiny warm-up step on the card against the CPU, same inputs and draws."""
+def phase_steps_gpu_vs_cpu(stage: str) -> None:
+    """3 tiny steps of ``stage`` on the card against the CPU, same inputs and
+    draws: losses at 1e-4 relative, ``consensus_kept`` within 1e-3,
+    parameters within 1e-5, BN running statistics within 1e-4 + 1e-3 x
+    |value|, centroid vectors within 1e-5 + 1e-4 x |value| and counts equal."""
     prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -656,9 +708,12 @@ def phase_warmup_gpu_vs_cpu() -> None:
         model_sd = DeepLabV2(19, (1, 1, 1, 1), droprate=0.0).state_dict()
         translator_sd = {"enc_s": ImgEncoder(dim=16, n_res=1).state_dict(),
                          "dec_s2t": ImgDecoder(dim=64, n_res=1).state_dict()}
-        card, host = "cuda", "cpu"
-        runs = {dev: tiny_warmup(dev, model_sd, translator_sd) for dev in (host, card)}
         rng = np.random.default_rng(SEED + 4)
+        centroids = Centroids(torch.from_numpy(rng.normal(size=(19, 256)).astype(np.float32) * 0.1),
+                              torch.full((19,), 150.0))
+        card, host = DEVICE.type, "cpu"
+        runs = {dev: tiny_train(stage, dev, model_sd, translator_sd, centroids)
+                for dev in (host, card)}
         gen = torch.Generator().manual_seed(SEED + 5)
         losses = {dev: [] for dev in runs}
         for _ in range(TRAIN_STEPS):
@@ -667,17 +722,25 @@ def phase_warmup_gpu_vs_cpu() -> None:
             batch = {"s_img": (rng.normal(size=(2, 64, 128, 3)) * 0.5).astype(np.float32),
                      "s_lbl": lbl,
                      "t_img": (rng.normal(size=(2, 64, 128, 3)) * 0.5).astype(np.float32)}
-            draws = P.draw(gen, 2)
-            selection = mixing.sample_half_classes(torch.from_numpy(lbl), gen, 19)
+            draws = {"photometric_draws": P.draw(gen, 2)}
+            if stage != "dg":
+                draws["selection"] = mixing.sample_half_classes(torch.from_numpy(lbl), gen, 19)
+            if stage == "selftrain":
+                pseudo = rng.choice(rng.choice(19, size=3, replace=False), size=(2, 64, 128))
+                pseudo[:, :, 40:48] = 255
+                batch["t_pseudo"] = pseudo.astype(np.int32)
+                draws["target_photometric_draws"] = P.draw(gen, 2)
+                draws["dacs_selection"] = mixing.sample_half_classes(torch.from_numpy(lbl), gen, 19)
             for dev, (state, step) in runs.items():
-                m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
-                         selection=selection.to(dev),
-                         photometric_draws={k: v.to(dev) for k, v in draws.items()})
+                kw = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+                          else v.to(dev)) for k, v in draws.items()}
+                m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, **kw)
                 losses[dev].append({k: float(v) for k, v in m.items()})
         for a, b in zip(losses[card], losses[host]):
             for k in a:
-                require(math.isfinite(a[k]) and abs(a[k] - b[k]) <= 1e-4 * abs(b[k]),
-                        f"tiny warm-up {k} on the card {a[k]!r} vs the CPU {b[k]!r}")
+                tol = 1e-3 if k == "consensus_kept" else 1e-4 * abs(b[k])
+                require(math.isfinite(a[k]) and abs(a[k] - b[k]) <= tol,
+                        f"tiny {stage} {k} on the card {a[k]!r} vs the CPU {b[k]!r}")
         sd = {dev: {k: v.detach().cpu() for k, v in state.student.state_dict().items()}
               for dev, (state, _) in runs.items()}
         # parameters within 1e-5 (updates are lr x grad); running statistics
@@ -693,13 +756,28 @@ def phase_warmup_gpu_vs_cpu() -> None:
             else:
                 e_param = max(e_param, float(d.max()))
         require(e_param <= 1e-5 and e_stat <= 1.0,
-                f"tiny warm-up state on the card vs the CPU: params {e_param:.3e} (tol 1e-5), "
+                f"tiny {stage} state on the card vs the CPU: params {e_param:.3e} (tol 1e-5), "
                 f"running stats {e_stat:.3e} of their tolerance 1e-4 + 1e-3 x |value|")
-        print(f"warm-up gpu-vs-cpu layers=(1,1,1,1) crop 64x128 f32 tf32=off {TRAIN_STEPS} "
+        extra = ""
+        if stage == "selftrain":
+            c_card, c_host = runs[card][0].centroids, runs[host][0].centroids
+            e_cent = float(((c_card.vectors.cpu() - c_host.vectors).abs()
+                            / (1e-5 + 1e-4 * c_host.vectors.abs())).max())
+            require(torch.equal(c_card.counts.cpu(), c_host.counts) and e_cent <= 1.0,
+                    f"tiny self-training centroids on the card vs the CPU: counts "
+                    f"{c_card.counts.tolist()} vs {c_host.counts.tolist()}, vectors at "
+                    f"{e_cent:.3f} of their tolerance 1e-5 + 1e-4 x |value|")
+            require(all(0.0 <= x["consensus_kept"] <= 1.0 for x in losses[card]),
+                    f"consensus_kept out of [0, 1]: {losses[card]}")
+            extra = (f", consensus_kept {[round(x['consensus_kept'], 6) for x in losses[card]]}"
+                     f" vs {[round(x['consensus_kept'], 6) for x in losses[host]]} (tol 1e-3), "
+                     f"centroid counts equal ({float(c_host.counts.sum()):.0f} in all), vectors "
+                     f"at {e_cent:.3f} of their tolerance")
+        print(f"{stage} gpu-vs-cpu layers=(1,1,1,1) crop 64x128 f32 tf32=off {TRAIN_STEPS} "
               f"steps: losses {[round(x['loss'], 6) for x in losses[card]]} vs "
               f"{[round(x['loss'], 6) for x in losses[host]]} (tol 1e-4 rel), params "
               f"max_abs_err {e_param:.3e} (tol 1e-5), running stats at {e_stat:.3f} of their "
-              f"tolerance (1e-4 + 1e-3 x |value|)", flush=True)
+              f"tolerance (1e-4 + 1e-3 x |value|){extra}", flush=True)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
@@ -718,30 +796,9 @@ def phase_train_main_path(work: str) -> tuple[dict, dict]:
             "--source_root", gta_root, "--source_list", gta_list,
             "--target_root", city_root, "--target_img_list", img_list,
             "--target_lbl_list", lbl_list]
-
-    reset_launches()
-    t0 = time.perf_counter()
-    result = train_warm_up.main(argv)
-    torch.cuda.synchronize()
-    counts = launches()
-    print(f"main path: train_warm_up {TRAIN_STEPS} steps in {time.perf_counter() - t0:.1f} s "
-          f"(model build, cuDNN autotuning and data loading included); launches={counts}",
-          flush=True)
-    want = {"distill_loss": TRAIN_STEPS, "distill_grad": TRAIN_STEPS,
-            "group_norm_stats": 6 * TRAIN_STEPS, "group_norm_apply": 6 * TRAIN_STEPS}
-    require(counts == want, f"kernel launches on the train path {counts}, expected {want}")
-    with open(os.path.join(wd, "metrics.jsonl")) as f:
-        recs = [json.loads(line) for line in f]  # the trainer logs step 0 of every 50
-    require([r["step"] for r in recs] == [0], f"metrics.jsonl: {recs}")
-    last = {"step": TRAIN_STEPS - 1, **result.last_metrics}
-    for r in (recs[0], last):
-        require(all(math.isfinite(r[k]) for k in ("loss", "loss_semseg", "loss_distil")),
-                f"non-finite training loss: {r}")
-    build_eval(get_preset(PRESET), os.path.join(wd, "weights"), torch.device("cuda"))
-    print("main path losses: " + json.dumps([{k: r[k] for k in ("step", "loss", "loss_semseg",
-                                                                "loss_distil")}
-                                             for r in (recs[0], last)])
-          + "; student.pth loads strictly into the eval model", flush=True)
+    result, counts = run_path("train_warm_up", train_warm_up.main, argv,
+                              kernel_counts(TRAIN_STEPS, 6 * TRAIN_STEPS))
+    check_train_run("train_warm_up", wd, result, ("loss", "loss_semseg", "loss_distil"))
     return counts, {"source_root": gta_root, "source_list": gta_list, "target_root": city_root,
                     "target_img_list": img_list, "target_lbl_list": lbl_list}
 
@@ -755,20 +812,22 @@ def step_ms(state, step, batch, n: int) -> float:
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def phase_train_timing(data_paths: dict, card: str, profile_dir: str | None) -> dict:
-    """ms/step of the warm-up step on one batch on the card, in turns with
+def phase_train_timing(preset: str, data_paths: dict, card: str, profile_dir: str | None,
+                       **build_kw) -> dict:
+    """ms/step of ``preset``'s step on one batch on the card, in turns with
     the distillation kernels and with the plain PyTorch distillation under
-    autograd (``ops/losses.py``); imgs/s, peak memory, optional profile."""
-    base = get_preset(PRESET)
+    autograd (``ops/losses.py``); source imgs/s, peak memory, optional
+    profile.  ``build_kw`` goes to ``build_experiment`` (weights, centroids)."""
+    base = get_preset(preset)
     cfg = dataclasses.replace(base, data=dataclasses.replace(base.data, **data_paths))
-    state, step, _ = build_experiment(cfg, torch.device("cuda"))
-    it, loaders = make_train_iterator(cfg, with_target=True)
+    state, step, _ = build_experiment(cfg, DEVICE, **build_kw)
+    it, loaders = make_train_iterator(cfg, with_target=wants_target(cfg))
     try:
-        batch = to_device(next(it), torch.device("cuda"))
+        batch = to_device(next(it), DEVICE)
     finally:
         for ld in loaders:
             ld.stop()
-    batch.pop("t_lbl")
+    batch.pop("t_lbl", None)
     n_src = batch["s_img"].shape[0]
     step_ms(state, step, batch, 3)  # warm-up: cuDNN autotuning, allocator
     torch.cuda.reset_peak_memory_stats()
@@ -782,12 +841,14 @@ def phase_train_timing(data_paths: dict, card: str, profile_dir: str | None) -> 
             D.distillation_loss = kernel_fn
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     k, p = (float(np.mean(times[v])) for v in ("kernel", "plain"))
+    metric = f"{preset}_train_imgs_per_sec_per_chip"
     out = {"ms_per_step": k, "ms_per_step_plain_distill": p, "peak_mem_GiB": peak_gb,
-           "gta2city_warmup_train_imgs_per_sec_per_chip": n_src / (k / 1e3)}
-    print(f"train warm-up step R101 bf16 source {n_src} + target {batch['t_img'].shape[0]} "
-          f"imgs crop {tuple(batch['s_img'].shape[1:3])}: ms/step distill=kernel {k:.2f} "
-          f"{times['kernel']} distill=plain {p:.2f} {times['plain']} peak_mem_GiB={peak_gb:.2f} "
-          f"| card={card}", flush=True)
+           metric: n_src / (k / 1e3)}
+    n_tgt = batch["t_img"].shape[0] if "t_img" in batch else 0
+    print(f"train {cfg.stage} step R101 bf16 source {n_src} + target {n_tgt} imgs crop "
+          f"{tuple(batch['s_img'].shape[1:3])}: ms/step distill=kernel {k:.2f} "
+          f"{times['kernel']} distill=plain {p:.2f} {times['plain']} source imgs/s "
+          f"{out[metric]:.2f} peak_mem_GiB={peak_gb:.2f} | card={card}", flush=True)
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile
 
@@ -799,57 +860,186 @@ def phase_train_timing(data_paths: dict, card: str, profile_dir: str | None) -> 
         table = avgs.table(sort_by="self_cuda_time_total", row_limit=60)
         by_shape = prof.key_averages(group_by_input_shape=True).table(
             sort_by="self_cuda_time_total", row_limit=40)
-        with open(os.path.join(profile_dir, "train_step_profile.txt"), "w") as f:
+        with open(os.path.join(profile_dir, f"{cfg.stage}_step_profile.txt"), "w") as f:
             f.write(table + "\n" + by_shape)
-        prof.export_chrome_trace(os.path.join(profile_dir, "train_step_trace.json"))
+        prof.export_chrome_trace(os.path.join(profile_dir, f"{cfg.stage}_step_trace.json"))
         dev_ms = device_time_us(avgs) / 1e3
         out["device_ms_per_step"] = dev_ms
         out["busy_share"] = dev_ms / k
-        print(f"profile: one warm-up step, device time {dev_ms:.2f} ms; busy share "
+        print(f"profile: one {cfg.stage} step, device time {dev_ms:.2f} ms; busy share "
               f"{dev_ms / k:.3f} of {k:.2f} ms/step; table and trace in {profile_dir}", flush=True)
         print("\n".join(table.splitlines()[:40]))
         print("\n".join(by_shape.splitlines()[:16]))
-    print(json.dumps({"metric": "gta2city_warmup_train_imgs_per_sec_per_chip",
-                      "value": out["gta2city_warmup_train_imgs_per_sec_per_chip"],
-                      "unit": "imgs/sec", "ms_per_step": k, "card": card}), flush=True)
+    print(json.dumps({"metric": metric, "value": out[metric], "unit": "imgs/sec",
+                      "ms_per_step": k, "peak_mem_GiB": peak_gb, "card": card}), flush=True)
     return out
 
 
+def run_path(name: str, fn, argv: list, want: dict):
+    """Drive one CLI with every launch count set to 0 just before and read
+    just after; require the counts to be ``want``."""
+    reset_launches()
+    t0 = time.perf_counter()
+    result = fn([*argv, "--device", DEVICE.type])
+    torch.cuda.synchronize()
+    counts = launches()
+    print(f"main path: {name} in {time.perf_counter() - t0:.1f} s (set-up and data loading "
+          f"included); launches={counts}", flush=True)
+    require(counts == want, f"kernel launches on the {name} path {counts}, expected {want}")
+    return result, counts
+
+
+def kernel_counts(distill: int, gn: int) -> dict:
+    return {"distill_loss": distill, "distill_grad": distill,
+            "group_norm_stats": gn, "group_norm_apply": gn}
+
+
+def check_train_run(name: str, wd: str, result, keys) -> None:
+    """Finite losses at step 0 (the trainer logs every 50) and at the last
+    step; the exported student.pth loads strictly into the eval model."""
+    with open(os.path.join(wd, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    require([r["step"] for r in recs] == [0], f"{name} metrics.jsonl: {recs}")
+    last = {"step": TRAIN_STEPS - 1, **result.last_metrics}
+    for r in (recs[0], last):
+        require(all(math.isfinite(r[k]) for k in keys), f"{name}: non-finite loss: {r}")
+        require(0.0 <= r.get("consensus_kept", 0.0) <= 1.0, f"{name}: consensus_kept {r}")
+    build_eval(get_preset(PRESET), os.path.join(wd, "weights"), DEVICE)
+    print(f"main path {name} metrics: " + json.dumps([{k: r[k] for k in ("step", *keys)}
+                                                      for r in (recs[0], last)])
+          + "; student.pth loads strictly into the eval model", flush=True)
+
+
+def phase_chain_main_paths(work: str, data_paths: dict) -> tuple[dict, dict]:
+    """The self-training chain at full width from the warm-up's weights:
+    pseudolabel_generator -> calc_centroids -> train_self_training, then
+    train_dg; returns (launch counts by path, the chain's paths)."""
+    warm = os.path.join(work, "warmup", "weights")
+    city = data_paths["target_root"]
+    # the chain's target set: the first N_IMAGES Cityscapes train images
+    lists = {}
+    for key in ("target_img_list", "target_lbl_list"):
+        with open(data_paths[key]) as f:
+            names = [line for line in f.read().splitlines() if line][:N_IMAGES]
+        lists[key] = os.path.join(work, f"chain_{key}.txt")
+        with open(lists[key], "w") as f:
+            f.write("\n".join(names) + "\n")
+    data = ["--source_root", data_paths["source_root"], "--source_list", data_paths["source_list"],
+            "--target_root", city, "--target_img_list", lists["target_img_list"],
+            "--target_lbl_list", lists["target_lbl_list"]]
+    counts = {}
+
+    pseudo = os.path.join(city, PSEUDO_DIR)
+    n, counts["pseudolabel_generator"] = run_path(
+        "pseudolabel_generator", pseudolabel_generator.main,
+        ["--preset", PRESET, "--weight_dir", warm, "--output_dir", pseudo, *data],
+        kernel_counts(0, N_IMAGES * 2 * 6))  # images x scales x ASPP GroupNorm sites
+    files = sorted(os.listdir(pseudo))
+    require(n == N_IMAGES and len(files) == N_IMAGES, f"pseudo-labels: {n}, {files}")
+    for name in files:
+        im = Image.open(os.path.join(pseudo, name))
+        a = np.array(im)
+        require(im.mode == "P" and a.shape == OUT_HW and int(a.max()) < 19,
+                f"pseudo-label {name}: mode {im.mode}, shape {a.shape}, max {a.max()}")
+    print(f"pseudo-labels: {files} P-mode {OUT_HW}, classes used "
+          f"{sorted(set(np.unique(np.array(Image.open(os.path.join(pseudo, files[0])))).tolist()))}",
+          flush=True)
+
+    cdir = os.path.join(work, "centroids")
+    cents, counts["calc_centroids"] = run_path(
+        "calc_centroids", calc_centroids.main,
+        ["--preset", PRESET, "--weight_dir", warm, "--centroid_dir", cdir, "--epochs", "1", *data],
+        kernel_counts(0, N_IMAGES * 6))
+    vec = np.load(os.path.join(cdir, "feat_centroids.npy"))
+    require(vec.shape == (19, 256) and np.isfinite(vec).all() and float(cents.counts.sum()) > 0,
+            f"centroids {vec.shape}, finite {np.isfinite(vec).all()}, counts {cents.counts}")
+    print(f"centroids: (19, 256) finite, classes observed {int((cents.counts > 0).sum())}, "
+          f"counts {cents.counts.tolist()}", flush=True)
+
+    centroid_path = os.path.join(cdir, "feat_centroids.npy")
+    wd = os.path.join(work, "selftrain")
+    result, counts["train_self_training"] = run_path(
+        "train_self_training", train_self_training.main,
+        ["--preset", SELFTRAIN_PRESET, "--work_dir", wd, "--num_steps", str(TRAIN_STEPS),
+         "--load_weight_dir", warm, "--centroid_path", centroid_path, *data],
+        kernel_counts(TRAIN_STEPS, 2 * 6 * TRAIN_STEPS))  # teacher on [source; mix] and target
+    check_train_run("train_self_training", wd, result,
+                    ("loss", "loss_semseg", "loss_crossmix", "loss_distil", "consensus_kept"))
+
+    wd = os.path.join(work, "dg")
+    result, counts["train_dg"] = run_path(
+        "train_dg", train_dg.main,
+        ["--preset", DG_PRESET, "--work_dir", wd, "--num_steps", str(TRAIN_STEPS), *data],
+        kernel_counts(TRAIN_STEPS, 6 * TRAIN_STEPS))
+    check_train_run("train_dg", wd, result, ("loss", "loss_semseg", "loss_distil"))
+    return counts, {"warm": warm, "centroid_path": centroid_path,
+                    "data": {**data_paths, **lists}}
+
+
+def phase_pseudolabel_timing(warm: str, data: dict, card: str) -> float:
+    """ms/img of the pseudo-label generator's per-image work on the card:
+    the two-scale forward, the argmax and the uint8 map to the host (the
+    PNG encoding and the image decode are left out)."""
+    eval_apply, _ = build_eval(get_preset(PRESET), warm, DEVICE)
+    ds = cityscapes_dataset(data["target_root"], data["target_img_list"], data["target_lbl_list"],
+                            split="train", resize_hw=OUT_HW)
+    img = torch.from_numpy(ds[0]["image"][None]).to(DEVICE)
+
+    def run(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            pseudolabel_generator.predict_labels(eval_apply, img, OUT_HW, DS_HW).cpu()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    run(2)
+    times = [run(5) for _ in range(2)]
+    ms = float(np.mean(times))
+    print(f"pseudo-labels two-scale R101 bf16 {OUT_HW[0]}x{OUT_HW[1]}+{DS_HW[0]}x{DS_HW[1]}: "
+          f"ms/img {ms:.2f} {times} | card={card}", flush=True)
+    return ms
+
+
 def phase_distill_timing(card: str) -> dict:
-    """B1a/B1b device times at the path's shape against their bounds and plain versions."""
-    n_buf = 2  # 2 x 2 x 52.3 MB of logits: more than the 50 MB L2
-    pairs = [distill_inputs(DISTILL_SHAPE, torch.bfloat16, seed=300 + i) for i in range(n_buf)]
-    g = torch.tensor(0.5, device="cuda")
-    loss_args = [(t, s, 0.5) for t, s in pairs]
-    grad_args = [(t, s, g, 0.5) for t, s in pairs]
-    t = {
-        "distill_loss": time_us(D.distillation_loss_kernel, loss_args),
-        "distill_loss_plain": time_us(D.distillation_loss_plain, loss_args),
-        "distill_grad": time_us(D.distillation_grad_kernel, grad_args),
-        "distill_grad_plain": time_us(D.distillation_grad_plain, grad_args),
-    }
-    numel = math.prod(DISTILL_SHAPE)
-    xb = numel * 2
-    # reads t and s once (and writes ds); about 8 f32 operations per element
-    # for the two softmaxes and the CE terms (exp and log counted as one)
-    bounds = {"distill_loss": bound_us(2 * xb + 4, 8 * 2 * numel),
-              "distill_grad": bound_us(3 * xb + 4, 8 * 2 * numel)}
+    """B1a/B1b device times at the paths' shapes against their bounds and
+    plain versions; a kernel's row is the warm-up's and self-training's site."""
     per_kernel = {}
-    plans = dict(zip(("distill_loss", "distill_grad"), distill_plans(*pairs[0])))
-    require(all(p.vec for p in plans.values()),
-            f"the path's shape must take the 16-byte copies: {plans}")
-    for name in ("distill_loss", "distill_grad"):
-        dev, call = t[name]
-        print(f"distill shape={DISTILL_SHAPE} bf16 {name}: device {dev:.2f} us (call "
-              f"{call:.2f}) bound {bounds[name][0]:.2f} us by {bounds[name][1]} share "
-              f"{bounds[name][0] / dev:.2f}, plain {t[name + '_plain'][0]:.2f} us (call "
-              f"{t[name + '_plain'][1]:.2f}) | plan {plans[name].describe()} | card={card}",
-              flush=True)
-        per_kernel[name] = {"shape": list(DISTILL_SHAPE), "ms": dev / 1e3,
-                            "plain_ms": t[name + "_plain"][0] / 1e3,
-                            "bound_ms": bounds[name][0] / 1e3, "bound_by": bounds[name][1],
-                            "library_ms": None, "call_ms": call / 1e3,
-                            "plan": plans[name].describe()}
+    g = torch.tensor(0.5, device="cuda")
+    for shape in DISTILL_SITES:
+        n_buf = 2  # 2 x 2 x >= 52.3 MB of logits: more than the 50 MB L2
+        pairs = [distill_inputs(shape, torch.bfloat16, seed=300 + i) for i in range(n_buf)]
+        loss_args = [(t, s, 0.5) for t, s in pairs]
+        grad_args = [(t, s, g, 0.5) for t, s in pairs]
+        t = {
+            "distill_loss": time_us(D.distillation_loss_kernel, loss_args),
+            "distill_loss_plain": time_us(D.distillation_loss_plain, loss_args),
+            "distill_grad": time_us(D.distillation_grad_kernel, grad_args),
+            "distill_grad_plain": time_us(D.distillation_grad_plain, grad_args),
+        }
+        numel = math.prod(shape)
+        xb = numel * 2
+        # reads t and s once (and writes ds); about 8 f32 operations per element
+        # for the two softmaxes and the CE terms (exp and log counted as one)
+        bounds = {"distill_loss": bound_us(2 * xb + 4, 8 * 2 * numel),
+                  "distill_grad": bound_us(3 * xb + 4, 8 * 2 * numel)}
+        plans = dict(zip(("distill_loss", "distill_grad"), distill_plans(*pairs[0])))
+        require(all(p.vec for p in plans.values()),
+                f"the path's shape {shape} must take the 16-byte copies: {plans}")
+        for name in ("distill_loss", "distill_grad"):
+            dev, call = t[name]
+            print(f"distill shape={shape} bf16 {name}: device {dev:.2f} us (call "
+                  f"{call:.2f}) bound {bounds[name][0]:.2f} us by {bounds[name][1]} share "
+                  f"{bounds[name][0] / dev:.2f}, plain {t[name + '_plain'][0]:.2f} us (call "
+                  f"{t[name + '_plain'][1]:.2f}) | plan {plans[name].describe()} | card={card}",
+                  flush=True)
+            site = {"shape": list(shape), "ms": dev / 1e3,
+                    "plain_ms": t[name + "_plain"][0] / 1e3,
+                    "bound_ms": bounds[name][0] / 1e3, "bound_by": bounds[name][1],
+                    "library_ms": None, "call_ms": call / 1e3, "plan": plans[name].describe()}
+            if shape == DISTILL_SHAPE:
+                per_kernel[name] = {**site, "sites": []}
+            per_kernel[name]["sites"].append(site)
+        del pairs, loss_args, grad_args
     return per_kernel
 
 
@@ -857,7 +1047,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=str, default=None,
                     help="directory for torch.profiler tables and traces of one eval and "
-                         "one warm-up step")
+                         "one warm-up, self-training and DG step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs on the card",
@@ -876,7 +1066,8 @@ def main(argv=None) -> int:
     errs = {**phase_kernels_vs_plain(), **phase_distill_vs_plain()}
     # 4. tiny models on the card against the CPU
     phase_model_gpu_vs_cpu()
-    phase_warmup_gpu_vs_cpu()
+    for stage in ("warmup", "dg", "selftrain"):
+        phase_steps_gpu_vs_cpu(stage)
     counts = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         # 5. main path: the eval
@@ -894,19 +1085,35 @@ def main(argv=None) -> int:
         counts["train_warm_up"], data_paths = phase_train_main_path(work)
         gc.collect()
         torch.cuda.empty_cache()
-        phase_train_timing(data_paths, card, args.profile)
+        phase_train_timing(PRESET, data_paths, card, args.profile)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 7. main paths: the self-training chain and DG
+        chain_counts, chain = phase_chain_main_paths(work, data_paths)
+        counts.update(chain_counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_pseudolabel_timing(chain["warm"], chain["data"], card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_train_timing(SELFTRAIN_PRESET, chain["data"], card, args.profile,
+                           load_weight_dir=chain["warm"], centroid_path=chain["centroid_path"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_train_timing(DG_PRESET, chain["data"], card, args.profile)
     gc.collect()
     torch.cuda.empty_cache()
-    # 7. kernel timing and the record lines
+    # 8. kernel timing and the record lines
     per_kernel = {**phase_gn_timing(card), **phase_distill_timing(card)}
     for path, c in counts.items():
         used = [k for k, (_, src, _) in TPU_KERNELS.items()
-                if path == "train_warm_up" or src.endswith("group_norm.cu")]
+                if path in TRAIN_PATHS or src.endswith("group_norm.cu")]
         require(all(c[k] > 0 for k in used), f"a kernel of the {path} path never launched: {c}")
     kernels = []
     for kname, (kid, source, replaces) in TPU_KERNELS.items():
         kernels.append({"name": kname, "id": kid, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts["train_warm_up"][kname],
+                        "replaces": replaces,
+                        "launches": sum(c[kname] for c in counts.values()),
                         "launches_by_path": {p: c[kname] for p, c in counts.items()},
                         "max_abs_err": errs[kname], **per_kernel[kname]})
     print(f"total chip_smoke time {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -1,9 +1,9 @@
 """File-list segmentation datasets (numpy/PIL).
 
 The port's own copy of ``diga_tpu/data/datasets.py``: ``SegDataset`` with
-the training-time geometric augmentation and the GTA5 rare-class
-resampling, and the GTA5 and val constructors.  Pseudo-label loading
-(self-training) and SYNTHIA come with later slices.  The JAX package
+the training-time geometric augmentation, the GTA5 rare-class
+resampling and the self-training pseudo-labels, and the GTA5, Cityscapes
+and val constructors.  SYNTHIA comes with a later slice.  The JAX package
 routes the uint8 remap and the normalize through its C host ops; their
 numpy forms below give the same values bit for bit.
 
@@ -56,7 +56,12 @@ class SegDataset:
     Each sample is a dict:
       image:  float32 (H, W, 3) BGR normalized (NHWC layout, see normalize.py)
       label:  uint8   (H, W) trainIds, 255=ignore
+      pseudo: uint8   (H, W) trainIds (only when pseudo_dir is set)
       name:   str
+
+    The pseudo-label PNG, ``<root>/<pseudo_dir>/<basename of the image>``,
+    goes through the resize and the geometric transform as a second mask
+    beside the label.
     """
 
     root: str
@@ -68,6 +73,7 @@ class SegDataset:
     resize_hw: tuple[int, int] | None = None
     transform: Compose | None = None
     rare_class_resample: bool = False
+    pseudo_dir: str | None = None
 
     def __post_init__(self):
         if len(self.img_list) != len(self.lbl_list):
@@ -82,6 +88,9 @@ class SegDataset:
 
     def lbl_path(self, i: int) -> str:
         return os.path.join(self.root, self.lbl_template.format(name=self.lbl_list[i]))
+
+    def pseudo_path(self, i: int) -> str:
+        return os.path.join(self.root, self.pseudo_dir, os.path.basename(self.img_list[i]))
 
     def _accept_rare(self, label_trainid: np.ndarray) -> bool:
         """Reference acceptance rule: >=3 classes each covering >2% of the
@@ -99,24 +108,33 @@ class SegDataset:
 
     def __getitem__(self, index: int, rng: np.random.Generator | None = None) -> dict:
         image = _read_image(self.img_path(index))
-        label = Image.open(self.lbl_path(index))
+        masks = [Image.open(self.lbl_path(index))]
+        if self.pseudo_dir is not None:
+            masks.append(Image.open(self.pseudo_path(index)))
         if self.resize_hw is not None:
-            image, (label,) = resize_pair(image, [label], self.resize_hw)
+            image, masks = resize_pair(image, masks, self.resize_hw)
         if self.transform is None:
             img_np = np.array(image)
-            lbl_np = label_maps.remap_labels(np.array(label), self.lut)
+            lbl_np = label_maps.remap_labels(np.array(masks[0]), self.lut)
+            rest = [np.array(m) for m in masks[1:]]
         else:
             rng = rng if rng is not None else np.random.default_rng()
             for _ in range(RARE_MAX_TRIES if self.rare_class_resample else 1):
-                img_np, lbl_raw = self.transform(image, label, rng=rng)
+                img_np, lbl_raw, *rest = self.transform(image, *masks, rng=rng)
                 lbl_np = label_maps.remap_labels(lbl_raw, self.lut)
                 if not self.rare_class_resample or self._accept_rare(lbl_np):
                     break
-        return {
+        sample = {
             "image": normalize_image(img_np),
             "label": lbl_np.astype(np.uint8),
             "name": self.img_list[index],
         }
+        if self.pseudo_dir is not None:
+            # pseudo PNGs store trainIds (palette mode); out-of-range ids
+            # become 255 (reference: CityLoader.py:130-132)
+            sample["pseudo"] = label_maps.remap_labels(
+                rest[0], label_maps.IDENTITY19_LUT).astype(np.uint8)
+        return sample
 
 
 def gta5_dataset(root: str, list_path: str, **kw) -> SegDataset:

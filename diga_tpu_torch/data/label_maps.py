@@ -1,8 +1,8 @@
 """Label-id remapping tables and class names of the val datasets.
 
-The port's own copy of the evaluation part of ``diga_tpu/data/label_maps.py``
-(the GTA5/SYNTHIA tables and the palettes come with the training and
-pseudo-label slices).
+The port's own copy of ``diga_tpu/data/label_maps.py``: the val and GTA5
+tables, the pseudo-label LUT and the palettes (the SYNTHIA id table comes
+with the SYNTHIA slice).
 
 All tables are dense lookup tables (LUTs), so the remap is one vectorized
 ``np.take`` (reference: CityLoader.py:113-114, MapillaryLoader.py:39-131,
@@ -47,6 +47,29 @@ MAPILLARY_ID_TO_TRAINID = {
     52: 18,                        # bicycle
 }
 
+# 19-class Cityscapes palette (RGB).  reference: CityLoader.py:9-27
+CITYSCAPES_COLORS_19 = np.array(
+    [
+        [128, 64, 128], [244, 35, 232], [70, 70, 70], [102, 102, 156],
+        [190, 153, 153], [153, 153, 153], [250, 170, 30], [220, 220, 0],
+        [107, 142, 35], [152, 251, 152], [70, 130, 180], [220, 20, 60],
+        [255, 0, 0], [0, 0, 142], [0, 0, 70], [0, 60, 100],
+        [0, 80, 100], [0, 0, 230], [119, 11, 32],
+    ],
+    dtype=np.uint8,
+)
+
+# 16-class SYNTHIA palette (RGB).  reference: SYNTHIALoader.py:24-53
+SYNTHIA_COLORS_16 = np.array(
+    [
+        [128, 64, 128], [244, 35, 232], [70, 70, 70], [102, 102, 156],
+        [190, 153, 153], [153, 153, 153], [250, 170, 30], [220, 220, 0],
+        [107, 142, 35], [70, 130, 180], [220, 20, 60], [255, 0, 0],
+        [0, 0, 142], [0, 60, 100], [0, 0, 230], [119, 11, 32],
+    ],
+    dtype=np.uint8,
+)
+
 CLASS_NAMES_19 = [
     "road", "sidewalk", "building", "wall", "fence", "pole", "light",
     "sign", "vegetation", "terrain", "sky", "person", "rider", "car",
@@ -74,6 +97,9 @@ MAPILLARY_LUT = build_lut(MAPILLARY_ID_TO_TRAINID)
 # BDD100k labels already come as trainIds: 0..18 kept, everything else
 # ignored.  reference: BDDLoader.py:120-125
 BDD_LUT = build_lut({i: i for i in range(19)})
+# Pseudo-label PNGs round-trip through the palette format and are already
+# trainIds.  reference: CityLoader.py:130-132
+IDENTITY19_LUT = BDD_LUT
 
 
 def remap_labels(labels: np.ndarray, lut: np.ndarray) -> np.ndarray:
@@ -81,3 +107,11 @@ def remap_labels(labels: np.ndarray, lut: np.ndarray) -> np.ndarray:
     ids = np.asarray(labels)
     clipped = np.minimum(ids, len(lut) - 1).astype(np.int64)
     return lut[clipped]
+
+
+def make_png_palette(colors: np.ndarray) -> list[int]:
+    """Flat 768-entry PNG palette from an (N, 3) RGB color table (the
+    reference's pseudo-label palette, pseudolabel_generator.py:38-43)."""
+    flat = list(np.asarray(colors, dtype=np.uint8).reshape(-1))
+    flat += [0] * (256 * 3 - len(flat))
+    return [int(x) for x in flat]

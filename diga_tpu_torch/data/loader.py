@@ -45,10 +45,14 @@ class EpochShuffleSampler:
 
 
 def collate(samples: Sequence[dict]) -> dict:
-    """Stack sample dicts into batched numpy arrays (labels -> int32)."""
-    return {"image": np.stack([s["image"] for s in samples]).astype(np.float32),
-            "label": np.stack([s["label"] for s in samples]).astype(np.int32),
-            "name": [s["name"] for s in samples]}
+    """Stack sample dicts into batched numpy arrays (labels and pseudo-labels
+    -> int32)."""
+    out = {"image": np.stack([s["image"] for s in samples]).astype(np.float32),
+           "label": np.stack([s["label"] for s in samples]).astype(np.int32)}
+    if "pseudo" in samples[0]:
+        out["pseudo"] = np.stack([s["pseudo"] for s in samples]).astype(np.int32)
+    out["name"] = [s["name"] for s in samples]
+    return out
 
 
 class BatchLoader:

@@ -1,6 +1,7 @@
-"""Cross-domain mixture (CrDoMix): class selection and pixel masks, fixed-shape.
+"""Cross-domain mixture (CrDoMix) and DACS CutMix: class selection and pixel
+masks, fixed-shape.
 
-Counterpart of ``diga_tpu/ops/mixing.py`` (:23-79).  The reference builds
+Counterpart of ``diga_tpu/ops/mixing.py`` (:23-99).  The reference builds
 the mask with a Python loop and ``torch.unique``/``random.sample`` per
 image (train_DiGA_gta2city_warm_up.py:239-261), a host sync every step;
 here, as in the JAX package, the same distribution comes from fixed-shape
@@ -12,8 +13,8 @@ tensor ops on the device:
     ``torch.Generator``
   * the ignore slot is always selected (reference :249-250)
 
-``crdomix`` takes the selection as an argument, so a test can inject the
-JAX package's draw.
+``crdomix`` and ``dacs_crossmix`` take the selection as an argument, so a
+test can inject the JAX package's draw.
 """
 
 from __future__ import annotations
@@ -64,3 +65,15 @@ def crdomix(translated: torch.Tensor, source_aug: torch.Tensor, source_labels: t
     source view where it is 1 (reference: warm_up.py:239-261)."""
     mask = selection_to_pixel_mask(source_labels, selected, num_classes)[..., None]
     return translated * (1.0 - mask) + source_aug * mask
+
+
+def dacs_crossmix(target_img: torch.Tensor, source_img: torch.Tensor,
+                  source_labels: torch.Tensor, target_pseudo: torch.Tensor,
+                  selected: torch.Tensor, num_classes: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """DACS class-paste of source pixels and labels into the target: (NHWC
+    image, int32 label) with the source where the mask is 1, the target
+    image and its pseudo-label elsewhere (reference self_training.py:306-325)."""
+    mask = selection_to_pixel_mask(source_labels, selected, num_classes)
+    mixed = target_img * (1.0 - mask[..., None]) + source_img * mask[..., None]
+    label = torch.where(mask > 0, source_labels, target_pseudo).to(torch.int32)
+    return mixed, label

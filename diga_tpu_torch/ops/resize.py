@@ -1,6 +1,8 @@
-"""Bilinear resize with torch ``align_corners=True`` semantics.
+"""Bilinear resize with torch ``align_corners=True`` semantics, and the
+nearest resize of label maps.
 
-Counterpart of ``diga_tpu/ops/resize.py::resize_bilinear`` (:48-87).  The
+Counterpart of ``diga_tpu/ops/resize.py::resize_bilinear`` (:48-87) and
+``resize_nearest`` (:90-111).  The
 JAX package writes the resize as two interpolation-matrix products, a
 rewrite for the TPU's matrix unit; here it is the plain op that rewrite
 stands for, ``F.interpolate``.  As there, the interpolation runs in f32
@@ -10,6 +12,9 @@ shift eval logits visibly.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -29,3 +34,24 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
                       mode="bilinear", align_corners=align_corners)
     out = y.to(x.dtype).permute(0, 2, 3, 1)
     return out[0] if squeeze else out
+
+
+@functools.lru_cache(maxsize=256)
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """The JAX package's nearest index rule floor(o · in/out), in float64 and
+    clipped.  ``F.interpolate(mode="nearest")`` computes its scale in
+    float32 and picks another row at some sizes, so the index is built here."""
+    o = np.arange(out_size, dtype=np.float64)
+    idx = np.floor(o * (in_size / out_size)).astype(np.int64)
+    return np.clip(idx, 0, in_size - 1)
+
+
+def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Nearest resize over the last two dims (..., H, W), e.g. (B, H, W) labels."""
+    oh, ow = out_hw
+    h, w = x.shape[-2], x.shape[-1]
+    if (h, w) == (oh, ow):
+        return x
+    ih = torch.from_numpy(_nearest_index(h, oh)).to(x.device)
+    iw = torch.from_numpy(_nearest_index(w, ow)).to(x.device)
+    return x.index_select(-2, ih).index_select(-1, iw)

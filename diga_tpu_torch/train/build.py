@@ -1,10 +1,12 @@
 """Assemble models, optimizer, state and the step from a preset config.
 
 Counterpart of ``diga_tpu/train/build.py``: ``make_model`` (:31-58),
-``make_schedule``/``make_step_config`` (:61-98), the translator helpers
-(:111-140), ``build_experiment`` (:143-279) for the warm-up stage, and
-``export_state_role_keyed`` (:289-313); previous-stage weights come from
-role-keyed ``.pth`` files (reference stage chaining).  ``build_eval`` is
+``make_schedule``/``make_step_config``/``wants_target`` (:61-108), the
+translator helpers (:111-140), ``build_experiment`` (:143-279) for the
+warm-up, DG and self-training stages, and ``export_state_role_keyed``
+(:289-313); previous-stage weights come from role-keyed ``.pth`` files and
+the self-training centroids from ``calc_centroids``' output (reference
+stage chaining).  ``build_eval`` is
 the frozen eval model of ``evaluate_val``.
 
 Parameters are f32; the compute dtype is applied by ``torch.autocast``
@@ -18,17 +20,19 @@ import contextlib
 import os
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from ..configs.presets import ExperimentConfig
 from ..models.resnet_deeplab import DeepLabV2
 from ..models.translator import ImgDecoder, ImgEncoder
+from ..ops.prototypes import Centroids
 from ..utils.checkpoint import export_role_keyed, load_role_keyed
 from .optim import sgd_grouped
 from .schedules import poly_schedule, poly_warmup_schedule
 from .state import SegTrainState, create_seg_state
-from .steps import StepConfig, build_warmup_step
+from .steps import StepConfig, build_dg_step, build_selftrain_step, build_warmup_step
 
 
 def compute_dtype(cfg: ExperimentConfig) -> torch.dtype:
@@ -119,11 +123,10 @@ def make_schedule(cfg: ExperimentConfig) -> Callable[[int], float]:
 _NOT_PORTED = {
     "aux_weight": "HRNet/semiseg, ROADMAP queue A item 14",
     "rgb_input": "HRNet/semiseg, ROADMAP queue A item 14",
-    "no_translator": "the DG-style step, ROADMAP queue A item 8",
-    "fuse_forwards": "self-training, ROADMAP queue A item 9",
+    "fuse_forwards": "the self-training throughput mode, not parity-exact, ROADMAP queue A "
+                     "item 9",
 }
-# knobs whose non-default value belongs to an unported stage
-_DEFAULTS_ONLY = {"with_sharpness": (True, "the DG chain, ROADMAP queue A item 8")}
+TRAIN_STAGES = ("warmup", "dg", "selftrain")
 
 
 def make_step_config(cfg: ExperimentConfig) -> StepConfig:
@@ -135,9 +138,9 @@ def make_step_config(cfg: ExperimentConfig) -> StepConfig:
     for key, where in _NOT_PORTED.items():
         if cfg.extra.get(key):
             raise NotImplementedError(f"--extra {key} is not ported yet ({where})")
-    for key, (value, where) in _DEFAULTS_ONLY.items():
-        if cfg.extra.get(key, value) != value:
-            raise NotImplementedError(f"--extra {key}={cfg.extra[key]!r} is not ported yet ({where})")
+    if cfg.stage == "selftrain" and cfg.extra.get("no_translator"):
+        raise NotImplementedError("self-training without the translator (semiseg) is not "
+                                  "ported yet (ROADMAP queue A item 14)")
     return StepConfig(
         num_classes=t.num_classes,
         crop_hw=tuple(t.crop_hw),
@@ -145,11 +148,37 @@ def make_step_config(cfg: ExperimentConfig) -> StepConfig:
         lambda_seg=t.lambda_seg,
         lambda_distil=t.lambda_distil,
         p_jitter=cfg.extra.get("p_jitter", 0.5),
-        # the reference warm-up's no-grad student(target) forward; on by
+        # the DG chain drops RandomSharpness (train_DiGA_DG.py:114)
+        with_sharpness=cfg.extra.get("with_sharpness", cfg.stage != "dg"),
+        # the reference warm-up/DG no-grad student(target) forward; on by
         # default for parity, --extra tgt_stats_forward=false drops it
         tgt_stats_forward=cfg.extra.get("tgt_stats_forward", cfg.stage in ("warmup", "dg")),
         compute_dtype=compute_dtype(cfg),
     )
+
+
+def wants_target(cfg: ExperimentConfig) -> bool:
+    """Does the stage's step read ``batch['t_img']``?  Self-training always
+    (consensus and DACS); warm-up and DG for the target-stats forward."""
+    return cfg.stage == "selftrain" or make_step_config(cfg).tgt_stats_forward
+
+
+def load_centroids(cfg: ExperimentConfig, centroid_path: str | None) -> Centroids:
+    """``--centroid_path`` (``.npy``, or a torch-saved tensor) with every count
+    at 100, else zero centroids (``diga_tpu/train/build.py:176-186``)."""
+    k = cfg.train.num_classes
+    if centroid_path is None:
+        return Centroids.create(k, cfg.extra.get("feat_dim", 256))
+    if not os.path.exists(centroid_path):
+        raise FileNotFoundError(f"--centroid_path {centroid_path!r} does not exist")
+    if centroid_path.endswith(".npy"):
+        vectors = torch.from_numpy(np.load(centroid_path))
+    else:
+        vectors = torch.as_tensor(torch.load(centroid_path, map_location="cpu"))
+    if vectors.ndim != 2 or vectors.shape[0] != k:
+        raise ValueError(f"centroids {tuple(vectors.shape)} from {centroid_path!r}: "
+                         f"expected ({k}, feat_dim)")
+    return Centroids(vectors=vectors.to(torch.float32), counts=torch.full((k,), 100.0))
 
 
 def make_translator_modules() -> tuple[ImgEncoder, ImgDecoder]:
@@ -170,17 +199,20 @@ def init_translator_frozen(cfg: ExperimentConfig, weight_dir: str | None,
 
 
 def build_experiment(cfg: ExperimentConfig, device: torch.device,
-                     load_weight_dir: str | None = None
+                     load_weight_dir: str | None = None,
+                     centroid_path: str | None = None
                      ) -> tuple[SegTrainState, Callable, Callable]:
-    """(state, step, eval_apply) for the warm-up stage.
+    """(state, step, eval_apply) for the warm-up, DG or self-training stage.
 
-    ``step(state, batch) -> metrics`` (``train/steps.py``); ``eval_apply``
-    runs the student in eval mode under the compute dtype's autocast.
+    ``step(state, batch) -> metrics`` (``train/steps.py``): the DG step for
+    stage ``dg`` and for a warm-up with ``--extra no_translator``, else the
+    stage's own; ``eval_apply`` runs the student in eval mode under the
+    compute dtype's autocast.
     """
-    if cfg.stage != "warmup":
+    if cfg.stage not in TRAIN_STAGES:
         raise NotImplementedError(
-            f"stage {cfg.stage!r} is not ported yet: the port trains the warm-up stage "
-            "(DG, self-training and translator steps are ROADMAP queue A items 8, 9, 13)")
+            f"stage {cfg.stage!r} is not ported yet: the port trains the warm-up, DG and "
+            "self-training stages (translator training is ROADMAP queue A item 13)")
     scfg = make_step_config(cfg)
     with seeded(cfg.train.seed):
         student = make_model(cfg)
@@ -188,12 +220,19 @@ def build_experiment(cfg: ExperimentConfig, device: torch.device,
         student.load_state_dict(load_role_keyed(load_weight_dir, ["student"])["student"],
                                 strict=True)
     student.to(device)
-    translator = init_translator_frozen(cfg, load_weight_dir, device)
+    translator = None
+    if cfg.stage in ("warmup", "selftrain") and not cfg.extra.get("no_translator", False):
+        translator = init_translator_frozen(cfg, load_weight_dir, device)
+    centroids = load_centroids(cfg, centroid_path) if cfg.stage == "selftrain" else None
     t = cfg.train
     optimizer = sgd_grouped(student, t.learning_rate, t.momentum, t.weight_decay, t.head_lr_mult)
-    state = create_seg_state(student, optimizer, t.seed, translator)
+    state = create_seg_state(student, optimizer, t.seed, translator, centroids)
     _use_benchmark_convs(device)
-    step = build_warmup_step(scfg, make_schedule(cfg))
+    if cfg.stage == "selftrain":
+        build_step = build_selftrain_step
+    else:
+        build_step = build_warmup_step if translator is not None else build_dg_step
+    step = build_step(scfg, make_schedule(cfg))
     amp = None if scfg.compute_dtype == torch.float32 else scfg.compute_dtype
     return state, step, _eval_apply(student, cfg.extra.get("rgb_input", False), amp)
 

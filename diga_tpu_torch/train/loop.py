@@ -33,26 +33,33 @@ from ..data import (
 from ..data.loader import BatchLoader
 from ..eval.evaluator import TwoScaleEvaluator, iter_val
 from ..utils.logging import MetricLogger
-from .build import export_state_role_keyed, make_step_config
+from .build import export_state_role_keyed, wants_target
 from .state import SegTrainState
 
 
 def build_dataset(spec: LoaderSpec, data_cfg: DataConfig, crop_hw, is_source: bool):
     """One stream's dataset with the stage's geometric augmentation (the
-    source random-resizes, the target crops; reference warm_up.py:97-103)."""
+    source random-resizes, the target crops, random-resized in
+    self-training; reference warm_up.py:97-103, self_training.py:110-115).
+    A target stream with ``use_pseudo`` also reads the pseudo-label PNGs
+    under ``<target_root>/<pseudo_dir>``."""
     sized = data_cfg.source_sized_crop if is_source else data_cfg.target_sized_crop
     crop_cls = RandomSizedAndCrop if sized else RandomCrop
     kw = dict(resize_hw=tuple(spec.resize_hw),
               transform=Compose([RandomHorizontallyFlip(), crop_cls(list(crop_hw))]))
     if spec.kind == "gta5":
         return gta5_dataset(data_cfg.source_root, data_cfg.source_list, **kw)
-    if spec.kind == "cityscapes" and not is_source and not spec.use_pseudo:
+    if spec.kind == "cityscapes" and not is_source:
+        if spec.use_pseudo and data_cfg.pseudo_dir is None:
+            raise ValueError("a pseudo-label target stream needs --pseudo_dir")
         return cityscapes_dataset(data_cfg.target_root, data_cfg.target_img_list,
-                                  data_cfg.target_lbl_list, split=spec.split, **kw)
+                                  data_cfg.target_lbl_list, split=spec.split,
+                                  pseudo_dir=data_cfg.pseudo_dir if spec.use_pseudo else None,
+                                  **kw)
     raise NotImplementedError(
-        f"{'source' if is_source else 'target'} stream {spec.kind!r}"
-        f"{' with pseudo-labels' if spec.use_pseudo else ''} is not ported yet "
-        "(SYNTHIA, BDD/Mapillary training and pseudo-labels: ROADMAP queue A item 10)")
+        f"{'source' if is_source else 'target'} stream {spec.kind!r} is not ported yet "
+        "(SYNTHIA, BDD/Mapillary training and Cityscapes as the source: ROADMAP queue A "
+        "items 10 and 14)")
 
 
 class MultiStreamLoader:
@@ -78,8 +85,8 @@ class MultiStreamLoader:
 
 
 def make_train_iterator(cfg: ExperimentConfig, with_target: bool):
-    """(iterator of {'s_img', 's_lbl'[, 't_img', 't_lbl']} numpy batches,
-    the loaders to stop)."""
+    """(iterator of {'s_img', 's_lbl'[, 't_img', 't_lbl'[, 't_pseudo']]}
+    numpy batches, the loaders to stop)."""
     crop = cfg.train.crop_hw
     src = MultiStreamLoader([(build_dataset(s, cfg.data, crop, True), s.batch)
                              for s in cfg.data.source_streams],
@@ -99,6 +106,8 @@ def make_train_iterator(cfg: ExperimentConfig, with_target: bool):
             if t_it is not None:
                 t = next(t_it)
                 batch["t_img"], batch["t_lbl"] = t["image"], t["label"]
+                if "pseudo" in t:
+                    batch["t_pseudo"] = t["pseudo"]
             yield batch
 
     return gen(), loaders
@@ -130,8 +139,7 @@ def run_training(cfg: ExperimentConfig, state: SegTrainState, step_fn: Callable,
     ``<work_dir>/weights`` and ``<work_dir>/weights_best``."""
     logger = MetricLogger(work_dir)
     steps = num_steps if num_steps is not None else cfg.train.num_steps
-    # the target batch feeds only the target-stats forward
-    it, loaders = make_train_iterator(cfg, make_step_config(cfg).tgt_stats_forward)
+    it, loaders = make_train_iterator(cfg, wants_target(cfg))
     best_miou, best_step = 0.0, 0
     metrics: dict = {}
     evaluator = None

@@ -1,24 +1,28 @@
-"""The UDA warm-up train step.
+"""The DG, UDA warm-up and self-training train steps.
 
-Counterpart of ``diga_tpu/train/steps.py::build_warmup_step`` (:194-268)
-with its ``StepConfig`` (:35-117), reference
-train_DiGA_gta2city_warm_up.py:197-305.  One call runs, in the reference
-order:
+Counterpart of ``diga_tpu/train/steps.py``: ``build_dg_step`` (:120-191),
+``build_warmup_step`` (:194-268) and ``build_selftrain_step`` (:271-402),
+with their ``StepConfig`` (:35-117).  Reference: train_DiGA_DG.py:188-275,
+train_DiGA_gta2city_warm_up.py:197-305 and
+train_DiGA_gta2city_self_training.py:214-387.
+
+The DG and warm-up steps run, in the reference order:
   1. EMA of the teacher parameters (alpha ramped by the step);
   2. the photometric view of the source batch;
-  3. the frozen translator (enc_s -> dec_s2t) under ``no_grad``;
-  4. CrDoMix: translated image outside, photometric view inside half the
-     source classes;
-  5. the teacher forward on [source; mix] in train mode (batch-statistic
-     BN, dropout) under ``no_grad`` — never eval mode;
-  6. the student forward and backward: CE on the source half plus
+  3. warm-up only: the frozen translator (enc_s -> dec_s2t) under
+     ``no_grad``, then CrDoMix: the translated image outside, the
+     photometric view inside half the source classes;
+  4. the teacher forward on [source; second view] in train mode
+     (batch-statistic BN, dropout) under ``no_grad``, never eval mode;
+  5. the student forward and backward: CE on the source half plus
      ``lambda_distil`` x the symmetric distillation, both on logits
      upsampled to the crop (``ops.distill``: the CUDA kernels B1a/B1b on
      the card);
-  7. the target-stats forward: the student's backbone on the target batch
-     with the pre-step parameters, after the [source; mix] statistics
+  6. the target-stats forward: the student's backbone on the target batch
+     with the pre-step parameters, after the [source; view] statistics
      update (``steps.py:246-252``; JAX dead-codes the head there);
-  8. the SGD step at ``schedule(step)``.
+  7. the SGD step at ``schedule(step)``.
+The self-training step is laid out in ``build_selftrain_step``.
 Forwards run under ``torch.autocast`` in the compute dtype; parameters
 stay f32.  The metrics stay device tensors until they are logged.
 """
@@ -35,6 +39,7 @@ from ..models.translator import translate
 from ..ops import distill as D
 from ..ops import mixing
 from ..ops import photometric as P
+from ..ops import prototypes
 from ..ops.ema import ema_alpha, ema_update
 from ..ops.losses import cross_entropy2d
 from ..ops.resize import resize_bilinear
@@ -54,6 +59,9 @@ class StepConfig:
     lambda_seg: float = 1.0
     lambda_distil: float = 0.5
     p_jitter: float = 0.5                # ColorJitter p (SYNTHIA warm-up: 0.7)
+    # RandomSharpness in the photometric chain; the DG chain has it
+    # commented out (train_DiGA_DG.py:114)
+    with_sharpness: bool = True
     # the reference's no-grad student(target) forward, kept for its BN
     # running-statistics side effect (diga_tpu StepConfig.tgt_stats_forward)
     tgt_stats_forward: bool = False
@@ -70,57 +78,178 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)  # contiguous NHWC -> channels_last NCHW view
 
 
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
 def _logits_up(model, x_nchw: torch.Tensor, crop_hw) -> torch.Tensor:
     """The model's logits, bilinearly upsampled to the crop, as NHWC."""
-    return resize_bilinear(model(x_nchw)[2].permute(0, 2, 3, 1), crop_hw)
+    return resize_bilinear(_nhwc(model(x_nchw)[2]), crop_hw)
+
+
+def _photometric(cfg: StepConfig, generator: torch.Generator, img: torch.Tensor,
+                 draws: dict | None) -> torch.Tensor:
+    if draws is None:
+        draws = P.draw(generator, img.shape[0], p_jitter=cfg.p_jitter)
+    return P.diga_photometric(img, draws, cfg.beta, with_sharpness=cfg.with_sharpness)
+
+
+def _crdomix_view(cfg: StepConfig, state: SegTrainState, s_img, s_lbl, s_aug, selection, amp):
+    """The translated source image with the photometric view pasted into
+    half its classes (reference warm_up.py:239-261)."""
+    if selection is None:
+        selection = mixing.sample_half_classes(s_lbl, state.gen_mix, cfg.num_classes)
+    with torch.no_grad():
+        with amp:
+            rec_s2t = translate(state.translator, s_img)
+        return mixing.crdomix(rec_s2t, s_aug, s_lbl, selection, cfg.num_classes)
+
+
+def _sgd_step(state: SegTrainState, schedule: Callable[[int], float]) -> None:
+    set_lr(state.optimizer, schedule(state.step))
+    state.optimizer.step()
+    state.optimizer.zero_grad(set_to_none=True)
+    state.step += 1
+
+
+def _distill_and_update(cfg: StepConfig, schedule, state: SegTrainState, s_cat: torch.Tensor,
+                        s_lbl: torch.Tensor, t_img: torch.Tensor | None,
+                        amp) -> dict[str, torch.Tensor]:
+    """Steps 4-7 of the DG and warm-up steps on ``s_cat`` = [source; view]."""
+    b = s_lbl.shape[0]
+    with torch.no_grad(), amp:
+        t_up = _logits_up(state.teacher, s_cat, cfg.crop_hw)
+    with amp:
+        s_up = _logits_up(state.student, s_cat, cfg.crop_hw)
+        ce = cross_entropy2d(s_up[:b], s_lbl)
+        distil = D.distillation_loss(t_up, s_up, DISTIL_SCALE)
+        total = cfg.lambda_seg * ce + cfg.lambda_distil * distil
+    total.backward()
+    if cfg.tgt_stats_forward:
+        with torch.no_grad(), amp:
+            state.student.backbone(_nchw(t_img))
+    _sgd_step(state, schedule)
+    return {"loss": total.detach(), "loss_semseg": ce.detach(), "loss_distil": distil.detach()}
+
+
+def build_dg_step(cfg: StepConfig, schedule: Callable[[int], float]) -> Callable:
+    """``step(state, batch, *, photometric_draws=None) -> metrics``: the
+    warm-up step without the translator and CrDoMix; the second view is the
+    photometric view itself (reference train_DiGA_DG.py:188-275).
+
+    ``batch``: ``s_img`` (B, H, W, 3) f32 NHWC, ``s_lbl`` (B, H, W) int, and
+    ``t_img`` when ``cfg.tgt_stats_forward``.
+    """
+
+    def step(state: SegTrainState, batch: dict, *,
+             photometric_draws: dict | None = None) -> dict[str, torch.Tensor]:
+        s_img, s_lbl = batch["s_img"], batch["s_lbl"]
+        amp = _autocast(s_img.device, cfg.compute_dtype)
+        ema_update(state.teacher, state.student, ema_alpha(state.step, EMA_CAP))
+        s_aug = _photometric(cfg, state.gen_photometric, s_img, photometric_draws)
+        s_cat = _nchw(torch.cat([s_img, s_aug], dim=0))
+        return _distill_and_update(cfg, schedule, state, s_cat, s_lbl, batch.get("t_img"), amp)
+
+    return step
 
 
 def build_warmup_step(cfg: StepConfig, schedule: Callable[[int], float]) -> Callable:
     """``step(state, batch, *, selection=None, photometric_draws=None) -> metrics``.
 
-    ``batch``: ``s_img`` (B, H, W, 3) f32 NHWC, ``s_lbl`` (B, H, W) int, and
-    ``t_img`` when ``cfg.tgt_stats_forward``; all on the state's device.
-    ``selection`` (B, C+1) and ``photometric_draws`` replace the step's own
-    draws (tests inject the JAX package's).
+    ``batch`` as for ``build_dg_step``.  ``selection`` (B, C+1) and
+    ``photometric_draws`` replace the step's own draws (tests inject the
+    JAX package's).
     """
 
     def step(state: SegTrainState, batch: dict, *, selection: torch.Tensor | None = None,
              photometric_draws: dict | None = None) -> dict[str, torch.Tensor]:
         s_img, s_lbl = batch["s_img"], batch["s_lbl"]
-        b = s_img.shape[0]
+        amp = _autocast(s_img.device, cfg.compute_dtype)
+        ema_update(state.teacher, state.student, ema_alpha(state.step, EMA_CAP))
+        s_aug = _photometric(cfg, state.gen_photometric, s_img, photometric_draws)
+        s_mix = _crdomix_view(cfg, state, s_img, s_lbl, s_aug, selection, amp)
+        s_cat = _nchw(torch.cat([s_img, s_mix], dim=0))
+        return _distill_and_update(cfg, schedule, state, s_cat, s_lbl, batch.get("t_img"), amp)
+
+    return step
+
+
+def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> Callable:
+    """``step(state, batch, *, selection=None, dacs_selection=None,
+    photometric_draws=None, target_photometric_draws=None) -> metrics``.
+
+    ``batch``: ``s_img``, ``s_lbl`` as above, ``t_img`` (B', H, W, 3) and
+    ``t_pseudo`` (B', H, W) int pseudo-labels.  One call runs, in the
+    reference order:
+      1. the EMA of the teacher parameters;
+      2. the photometric views of source and target;
+      3. the frozen translator and CrDoMix, as in the warm-up;
+      4. the teacher on [source; mix], then on the target, in train mode
+         under ``no_grad``: its BN statistics chain through both forwards,
+         and its GroupNorm runs on the kernel B2a/B2b on the card;
+      5. the centroid weights of the teacher's target features, upsampled
+         to the crop, and the bilateral consensus against ``t_pseudo``;
+      6. DACS: source classes pasted into the target's photometric view,
+         with the consensus as the label elsewhere;
+      7. the centroid update from the target, then from the source's mix
+         half, both in EMA mode;
+      8. the student on [source; mix], then on the DACS image, its BN
+         statistics chained;
+      9. loss = lambda_seg x (CE + CE on the DACS image) + lambda_distil x
+         the distillation against the teacher's [source; mix] logits;
+     10. the SGD step.
+    The JAX package's opt-in ``fuse_forwards`` throughput mode is not
+    ported (``train/build.py`` refuses it).
+    """
+
+    def step(state: SegTrainState, batch: dict, *, selection: torch.Tensor | None = None,
+             dacs_selection: torch.Tensor | None = None,
+             photometric_draws: dict | None = None,
+             target_photometric_draws: dict | None = None) -> dict[str, torch.Tensor]:
+        s_img, s_lbl = batch["s_img"], batch["s_lbl"]
+        t_img, t_pseudo = batch["t_img"], batch["t_pseudo"]
+        b, k = s_img.shape[0], cfg.num_classes
         amp = _autocast(s_img.device, cfg.compute_dtype)
 
         ema_update(state.teacher, state.student, ema_alpha(state.step, EMA_CAP))
+        s_aug = _photometric(cfg, state.gen_photometric, s_img, photometric_draws)
+        t_aug = _photometric(cfg, state.gen_photometric_target, t_img, target_photometric_draws)
+        s_mix = _crdomix_view(cfg, state, s_img, s_lbl, s_aug, selection, amp)
+        s_cat = _nchw(torch.cat([s_img, s_mix], dim=0))
 
-        draws = photometric_draws
-        if draws is None:
-            draws = P.draw(state.gen_photometric, b, p_jitter=cfg.p_jitter)
-        s_aug = P.diga_photometric(s_img, draws, cfg.beta)
-        if selection is None:
-            selection = mixing.sample_half_classes(s_lbl, state.gen_mix, cfg.num_classes)
         with torch.no_grad():
             with amp:
-                rec_s2t = translate(state.translator, s_img)
-            s_mix = mixing.crdomix(rec_s2t, s_aug, s_lbl, selection, cfg.num_classes)
-            s_cat = _nchw(torch.cat([s_img, s_mix], dim=0))
-            with amp:
-                t_up = _logits_up(state.teacher, s_cat, cfg.crop_hw)
+                _, _, st_logits, st_feat = state.teacher(s_cat)
+                _, _, tt_logits, tt_feat = state.teacher(_nchw(t_img))
+            st_logits, st_feat = _nhwc(st_logits), _nhwc(st_feat)
+            tt_logits, tt_feat = _nhwc(tt_logits), _nhwc(tt_feat)
+            st_up = resize_bilinear(st_logits, cfg.crop_hw)
+
+            weights = prototypes.centroid_weight(tt_feat, state.centroids.vectors)
+            t_consensus = prototypes.bilateral_consensus(
+                t_pseudo, resize_bilinear(weights, cfg.crop_hw))
+            if dacs_selection is None:
+                dacs_selection = mixing.sample_half_classes(s_lbl, state.gen_dacs, k)
+            cross_img, cross_lbl = mixing.dacs_crossmix(t_aug, s_img, s_lbl, t_consensus,
+                                                        dacs_selection, k)
+
+            vec_t, ok_t = prototypes.masked_class_means(tt_feat, tt_logits, t_consensus)
+            cents = prototypes.update_centroids(state.centroids, vec_t, ok_t, start_mean=False)
+            vec_s, ok_s = prototypes.masked_class_means(st_feat[b:], st_logits[b:], s_lbl)
+            cents = prototypes.update_centroids(cents, vec_s, ok_s, start_mean=False)
 
         with amp:
             s_up = _logits_up(state.student, s_cat, cfg.crop_hw)
+            cross_up = _logits_up(state.student, _nchw(cross_img), cfg.crop_hw)
             ce = cross_entropy2d(s_up[:b], s_lbl)
-            distil = D.distillation_loss(t_up, s_up, DISTIL_SCALE)
-            total = cfg.lambda_seg * ce + cfg.lambda_distil * distil
+            ce_cross = cross_entropy2d(cross_up, cross_lbl)
+            distil = D.distillation_loss(st_up, s_up, DISTIL_SCALE)
+            total = cfg.lambda_seg * (ce + ce_cross) + cfg.lambda_distil * distil
         total.backward()
-
-        if cfg.tgt_stats_forward:
-            with torch.no_grad(), amp:
-                state.student.backbone(_nchw(batch["t_img"]))
-
-        set_lr(state.optimizer, schedule(state.step))
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
-        state.step += 1
-        return {"loss": total.detach(), "loss_semseg": ce.detach(), "loss_distil": distil.detach()}
+        _sgd_step(state, schedule)
+        state.centroids = cents
+        return {"loss": total.detach(), "loss_semseg": ce.detach(),
+                "loss_crossmix": ce_cross.detach(), "loss_distil": distil.detach(),
+                "consensus_kept": (t_consensus != prototypes.IGNORE).to(torch.float32).mean()}
 
     return step

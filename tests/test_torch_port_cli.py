@@ -97,7 +97,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         " or m.split('.')[0] in ('flax', 'optax', 'orbax')"
         " or m == 'diga_tpu' or m.startswith('diga_tpu.'))\n"
         "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 41 else 0)\n"
+        "sys.exit(1 if bad or len(mods) < 46 else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -173,6 +173,7 @@ def test_cuda_kernels_match_plain(dtype):
 # ---------------------------------------------------------------------------
 
 MAIN_NPIX = 3 * 512 * 896  # the warm-up path's (6, 512, 896, 19): pixels per view
+DG_NPIX = 4 * 512 * 896  # the DG path's (8, 512, 896, 19)
 SMS = 132  # H100 SXM
 ALIGNED = 0x7F00_0000_0000  # a 16-byte aligned device address
 DISTILL_CU = pathlib.Path(D.__file__).resolve().parents[1] / "csrc" / "distill.cu"
@@ -203,7 +204,7 @@ def test_plan_constants_match_the_kernel_source(name, value):
 @pytest.mark.parametrize("elem", [2, 4])
 def test_tile_walk_covers_every_pixel_once(elem, backward):
     r = _plan(MAIN_NPIX, elem=elem, backward=backward).tile
-    for npix in (1, 7, r - 1, r, r + 1, MAIN_NPIX):
+    for npix in (1, 7, r - 1, r, r + 1, MAIN_NPIX, DG_NPIX):
         plan = _plan(npix, elem=elem, backward=backward)
         assert plan.tile == r and plan.n_tiles == -(-npix // r)
         walk = _tile_walk(npix, plan)
@@ -245,6 +246,8 @@ def test_plan_fits_shared_memory_for_every_k(elem, backward):
     (4, 19, 4, (0, 0), False, True),  # 4·76 = 304 bytes
     (5, 32, 2, (0, 0, 0), True, True),  # K=32 bf16: 64-byte rows
     (1, 19, 2, (0, 0), False, False),
+    (DG_NPIX, 19, 2, (0, 0), False, True),  # the DG path's shape: aug half at byte 69,730,304
+    (DG_NPIX, 19, 2, (0, 0, 0), True, True),
 ])
 def test_16_byte_path_exactly_when_spans_are_aligned(npix, k, elem, offsets, backward, vec):
     ptrs = tuple(ALIGNED + o for o in offsets)

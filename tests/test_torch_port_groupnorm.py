@@ -151,7 +151,7 @@ def test_cuda_kernel_matches_plain(dtype):
 
 GROUP_NORM_CU = pathlib.Path(G.__file__).resolve().parents[1] / "csrc" / "group_norm.cu"
 SMEM_PER_BLOCK = 232_448  # Hopper's dynamic shared memory of one block
-PATH_HW = (33153, 8385, 7345)  # the eval's full- and half-scale sites, the teacher's
+PATH_HW = (33153, 8385, 7345)  # the eval's full- and half-scale sites, the teachers'
 
 
 def _walk(plan):
@@ -174,7 +174,7 @@ def test_stats_plan_constants_match_the_kernel_source(name, value):
     assert re.search(rf"constexpr int {name} = (\d+);", src).group(1) == str(value)
 
 
-@pytest.mark.parametrize("batch", [1, 6])
+@pytest.mark.parametrize("batch", [1, 6, 3, 8])  # 3 and 8: the self-training and DG teachers
 @pytest.mark.parametrize("hw", [1, 31, 32, 33, *PATH_HW])
 def test_chunk_walk_covers_every_row_once(hw, batch):
     for elem in (2, 4):

@@ -1,4 +1,4 @@
-"""The port's warm-up train step against the jitted JAX step, over 5 steps.
+"""The port's warm-up and DG train steps against the jitted JAX steps, over 5 steps.
 
 Both sides start from one JAX init (tiny depth, layers (1, 1, 1, 1), crop
 32x64, f32), carried over by ``state_dict_from_jax`` and
@@ -13,6 +13,10 @@ each step the student and teacher parameters, both models' BN running
 statistics and the SGD momentum agree at atol 1e-5 / rtol 1e-4 (f32 sums
 in another order; over 5 steps this catches a drift of the EMA ramp, the
 LR index or the order of the statistics updates).
+
+The DG step (no translator, no CrDoMix, no RandomSharpness) is held by
+the same recipe, and ``make_step_config`` of the ``dg_gta5`` and
+``gta2city_selftrain`` presets against the JAX package's.
 
 A first test holds the train-mode DeepLab forward alone: logits and the
 running-statistics update against JAX ``train=True`` at ``s2b=False``.
@@ -35,7 +39,10 @@ from diga_tpu.ops import mixing as jax_mixing
 from diga_tpu.train.optim import sgd_grouped as jax_sgd_grouped
 from diga_tpu.train.schedules import poly_schedule as jax_poly
 from diga_tpu.train.state import create_seg_state as jax_create_state
+from diga_tpu.configs import presets as jax_presets
+from diga_tpu.train.build import make_step_config as jax_make_step_config
 from diga_tpu.train.steps import StepConfig as JaxStepConfig
+from diga_tpu.train.steps import build_dg_step as jax_build_dg_step
 from diga_tpu.train.steps import build_warmup_step as jax_build_warmup_step
 from diga_tpu_torch.models.convert import state_dict_from_jax, translator_state_dict_from_jax
 from diga_tpu_torch.models.resnet_deeplab import DeepLabV2
@@ -43,7 +50,9 @@ from diga_tpu_torch.models.translator import ImgDecoder, ImgEncoder
 from diga_tpu_torch.train.optim import sgd_grouped
 from diga_tpu_torch.train.schedules import poly_schedule
 from diga_tpu_torch.train.state import create_seg_state
-from diga_tpu_torch.train.steps import StepConfig, build_warmup_step
+from diga_tpu_torch.configs import presets as port_presets
+from diga_tpu_torch.train.build import make_step_config
+from diga_tpu_torch.train.steps import StepConfig, build_dg_step, build_warmup_step
 
 from _torch_port_common import LAYERS, jax_tiny_deeplab
 
@@ -97,7 +106,7 @@ def test_train_mode_forward_and_running_stats_match_jax():
 # 5 warm-up steps
 # ---------------------------------------------------------------------------
 
-def _jax_setup():
+def _jax_setup(stage="warmup"):
     model = JaxDeepLabV2(num_classes=K, layers=LAYERS, droprate=0.0, s2b=False)
     k = jax.random.PRNGKey(3)
     x = jnp.zeros((1, *CROP, 3), jnp.float32)
@@ -128,12 +137,16 @@ def _jax_setup():
         batch_stats=jax.tree_util.tree_map(np.abs, noisy(state.batch_stats, 0.01)),
         teacher_batch_stats=jax.tree_util.tree_map(np.abs, noisy(state.batch_stats, 0.01)),
         teacher_params=noisy(state.params, 0.01))
-    cfg = JaxStepConfig(crop_hw=CROP, beta=0.0, tgt_stats_forward=True)
-    step = jax.jit(jax_build_warmup_step(model, translator_apply, opt, cfg))
+    cfg = JaxStepConfig(crop_hw=CROP, beta=0.0, tgt_stats_forward=True,
+                        with_sharpness=stage != "dg")
+    if stage == "dg":
+        step = jax.jit(jax_build_dg_step(model, opt, cfg))
+    else:
+        step = jax.jit(jax_build_warmup_step(model, translator_apply, opt, cfg))
     return state, step
 
 
-def _port_setup(jstate):
+def _port_setup(jstate, stage="warmup"):
     student = DeepLabV2(num_classes=K, layers=LAYERS, droprate=0.0)
     student.load_state_dict(state_dict_from_jax(_np(jstate.params), _np(jstate.batch_stats),
                                                 LAYERS), strict=True)
@@ -142,13 +155,14 @@ def _port_setup(jstate):
     enc.load_state_dict(sds["enc_s"], strict=True)
     dec.load_state_dict(sds["dec_s2t"], strict=True)
     opt = sgd_grouped(student, LR, momentum=0.9, weight_decay=5e-4, head_mult=10.0)
-    state = create_seg_state(student, opt, seed=0,
-                             translator=torch.nn.ModuleDict({"enc_s": enc, "dec_s2t": dec}))
+    translator = None if stage == "dg" else torch.nn.ModuleDict({"enc_s": enc, "dec_s2t": dec})
+    state = create_seg_state(student, opt, seed=0, translator=translator)
     state.teacher.load_state_dict(state_dict_from_jax(
         _np(jstate.teacher_params), _np(jstate.teacher_batch_stats), LAYERS), strict=True)
     cfg = StepConfig(num_classes=K, crop_hw=CROP, beta=0.0, tgt_stats_forward=True,
-                     compute_dtype=torch.float32)
-    return state, build_warmup_step(cfg, poly_schedule(LR, 1000))
+                     with_sharpness=stage != "dg", compute_dtype=torch.float32)
+    build = build_dg_step if stage == "dg" else build_warmup_step
+    return state, build(cfg, poly_schedule(LR, 1000))
 
 
 def _batch(i):
@@ -177,23 +191,34 @@ def _snapshot_port(state):
             "teacher": copy.deepcopy(state.teacher.state_dict()), "mu": mu}
 
 
-@pytest.fixture(scope="module")
-def trajectories():
-    jstate, jstep = _jax_setup()
-    state, step = _port_setup(jstate)
+def _run(stage):
+    jstate, jstep = _jax_setup(stage)
+    state, step = _port_setup(jstate, stage)
     out = []
     for i in range(N_STEPS):
         batch = _batch(i)
-        _, _, k_mix, _, _, _ = jax.random.split(jstate.rng, 6)
-        selection = np.array(jax_mixing.sample_half_classes(jnp.asarray(batch["s_lbl"]), k_mix, K))
+        kw = {}
+        if stage == "warmup":
+            _, _, k_mix, _, _, _ = jax.random.split(jstate.rng, 6)
+            kw["selection"] = torch.from_numpy(np.array(
+                jax_mixing.sample_half_classes(jnp.asarray(batch["s_lbl"]), k_mix, K)))
         jstate, jmetrics = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
-        metrics = step(state, {k: torch.from_numpy(v) for k, v in batch.items()},
-                       selection=torch.from_numpy(selection))
+        metrics = step(state, {k: torch.from_numpy(v) for k, v in batch.items()}, **kw)
         out.append({"jax": {k: float(v) for k, v in jmetrics.items()},
                     "port": {k: float(v) for k, v in metrics.items()},
                     "jax_state": _snapshot_jax(jstate), "port_state": _snapshot_port(state)})
     assert state.step == int(jstate.step) == N_STEPS
     return out
+
+
+@pytest.fixture(scope="module")
+def trajectories():
+    return _run("warmup")
+
+
+@pytest.fixture(scope="module")
+def dg_trajectories():
+    return _run("dg")
 
 
 @pytest.mark.parametrize("metric", ["loss", "loss_semseg", "loss_distil"])
@@ -260,3 +285,36 @@ def test_target_stats_forward_moves_only_the_students_running_stats(tgt_stats_fo
     assert stats_equal == (not tgt_stats_forward)
     assert all(torch.equal(sd_off[k], sd[k]) for k in sd if "running" not in k
                and not k.endswith("num_batches_tracked"))
+
+
+# ---------------------------------------------------------------------------
+# 5 DG steps, and the stage defaults of the step config
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("what", ["metrics", "student", "teacher", "running_stats", "momentum"])
+def test_dg_step_matches_jax_every_step(dg_trajectories, what):
+    for i, t in enumerate(dg_trajectories):
+        if what == "metrics":
+            assert set(t["port"]) == set(t["jax"]) == {"loss", "loss_semseg", "loss_distil"}
+            for k, v in t["jax"].items():
+                assert t["port"][k] == pytest.approx(v, rel=1e-4), (i, k)
+            continue
+        roles = {"momentum": ["mu"], "running_stats": ["student", "teacher"]}.get(what, [what])
+        for role in roles:
+            ours, ref = t["port_state"][role], t["jax_state"][role]
+            keys = [k for k in ours if not k.endswith("num_batches_tracked")
+                    and (role == "mu" or ("running" in k) == (what == "running_stats"))]
+            assert keys
+            for k in keys:
+                _close(ours[k], ref[k], f"DG step {i} {role} {what} {k}")
+
+
+@pytest.mark.parametrize("preset", ["dg_gta5", "gta2city_selftrain", "gta2city_warmup"])
+def test_step_config_stage_defaults_match_jax(preset):
+    ours = make_step_config(port_presets.get_preset(preset))
+    ref = jax_make_step_config(jax_presets.get_preset(preset))
+    for field in ("with_sharpness", "tgt_stats_forward", "beta", "lambda_distil", "lambda_seg",
+                  "crop_hw", "num_classes", "p_jitter"):
+        assert getattr(ours, field) == getattr(ref, field), field
+    assert ours.with_sharpness == (preset != "dg_gta5")
+    assert ours.tgt_stats_forward == (preset != "gta2city_selftrain")
