@@ -21,6 +21,8 @@ failure of which exits non-zero:
      B2a's design: ragged, C=64, C=32, one row, fewer rows than one tile, a
      whole number of tiles, batch 6 with a ragged H·W, a base pointer
      16-byte but not 128-byte aligned; f32 channel sums at 1e-5 relative;
+     B2b bitwise equal to its plain version on B2a's mul/add, both through
+     ``group_norm`` (the pair, B2b launched under B2a's tail) and alone;
      three runs bitwise equal, with B2a's ticket workspace back at zero
      after each.  Distillation kernels (B1a/B1b) against theirs, f32 and
      bf16, at the train paths' (6, 512, 896, 19) and (8, 512, 896, 19),
@@ -51,7 +53,8 @@ failure of which exits non-zero:
      step timed on one batch (distillation kernel vs plain, in turns):
      ms/step, source imgs/s, peak memory
   7. main paths, self-training chain and DG, at full width from the
-     warm-up's weights, on two 1024x2048 Cityscapes train images:
+     warm-up's last-step weights (``weights_final``: 3 steps with no eval
+     write no best ``weights``), on two 1024x2048 Cityscapes train images:
      pseudolabel_generator (preset gta2city_warmup) writes P-mode PNGs into
      <target_root>/pseudo_train_warm_up; calc_centroids (one epoch) writes
      finite (19, 256) centroids; train_self_training (preset
@@ -62,9 +65,10 @@ failure of which exits non-zero:
   8. kernel timing: per-site GroupNorm and distillation device times
      (CUDA events around back-to-back calls queued behind a sleep kernel)
      against their byte bounds, plain versions and nearest library calls
-     (``torch.addcmul`` for B2b, ``torch.var_mean`` for B2a), with B2a's and
-     the distillation kernels' launch plans; then the ``kernels`` JSON line,
-     the card line and the result line
+     (``torch.addcmul`` for B2b, ``torch.var_mean`` for B2a), with the
+     kernels' launch plans; B2b alone (stream order) and the whole
+     ``group_norm`` (the pair) per site; then the ``kernels`` JSON line, the
+     card line and the result line
 
 Every main path runs with every kernel's launch count set to 0 just before
 it and read just after, and requires per run (B1a, B1b, B2a, B2b):
@@ -251,6 +255,12 @@ def gn_plan(x: torch.Tensor):
     return G.stats_plan(b, h * w, c, x.element_size(), G.max_clusters(x.device.index, x.dtype, c))
 
 
+def gn_apply_plan(x: torch.Tensor):
+    """B2b's launch plan on x, as the wrappers make it."""
+    b, h, w, c = x.shape
+    return G.apply_plan(b, h * w, c, x.element_size(), native.sm_count(x.device.index))
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -286,14 +296,14 @@ def phase_kernels_vs_plain() -> dict:
             require(x.data_ptr() % 16 == 0 and (offset == 0) == (x.data_ptr() % 128 == 0),
                     f"base pointer alignment at {tag}")
             with torch.inference_mode():
-                runs = []
+                runs = []  # B2a, B2b alone on its mul/add, the pair (B2b under B2a's tail)
                 for _ in range(3):
                     st = G.group_norm_stats(x, sc, bi)
-                    runs.append((*st, G.group_norm_apply(x, st[2], st[3])))
+                    runs.append((*st, G.group_norm_apply(x, st[2], st[3]), G.group_norm(x, sc, bi)))
                     torch.cuda.synchronize()
                     require(not bool(G.ticket_workspace(x.device).any()),
                             f"B2a's tickets not back at zero after a call at {tag}")
-                s, s2, mul, add, y = runs[0]
+                s, s2, mul, add, y, y_pair = runs[0]
                 ps, ps2, pmul, padd = G.group_norm_stats_plain(x, sc, bi)
                 py_apply = G.group_norm_apply_plain(x, mul, add)
                 py = G.group_norm_plain(x, sc, bi)
@@ -310,13 +320,19 @@ def phase_kernels_vs_plain() -> dict:
                 require(e_s <= 1e-5 and e_s2 <= 1e-5,
                         f"channel sums off at {tag}: rel {e_s:.2e}, {e_s2:.2e}")
             require(close(mul, pmul, tol) and close(add, padd, tol), f"mul/add off at {tag}")
-            require(close(y, py_apply, tol), f"apply kernel off at {tag}")
-            require(close(y, py, tol), f"group_norm off at {tag}")
+            # B2b repeats the plain version's arithmetic (the product rounded
+            # to x's type before the add), so it must match it bit for bit
+            require(torch.equal(y, py_apply), f"B2b alone not bitwise the plain version at {tag}: "
+                    f"max_abs_err {max_err(y, py_apply):.3e}")
+            require(torch.equal(y_pair, py_apply), f"B2b in group_norm not bitwise the plain "
+                    f"version at {tag}: max_abs_err {max_err(y_pair, py_apply):.3e}")
+            require(close(y_pair, py, tol), f"group_norm off at {tag}")
             e_stats = max(max_err(mul, pmul), max_err(add, padd))
             e_apply = max_err(y, py_apply)
-            print(f"check {tag}: stats max_abs_err={e_stats:.3e} apply max_abs_err={e_apply:.3e} "
-                  f"group_norm max_abs_err={max_err(y, py):.3e} tol={tol} bitwise-repeatable x3, "
-                  f"tickets zero | B2a plan {gn_plan(x).describe()}", flush=True)
+            print(f"check {tag}: stats max_abs_err={e_stats:.3e} apply bitwise equal alone and in "
+                  f"group_norm, group_norm max_abs_err={max_err(y_pair, py):.3e} tol={tol} "
+                  f"bitwise-repeatable x3, tickets zero | B2a plan {gn_plan(x).describe()} | B2b "
+                  f"plan {gn_apply_plan(x).describe()}", flush=True)
             if shape in GN_PATH_SITES and dtype == torch.bfloat16:
                 errs["group_norm_stats"] = max(errs["group_norm_stats"], e_stats)
                 errs["group_norm_apply"] = max(errs["group_norm_apply"], e_apply)
@@ -464,7 +480,9 @@ def time_us(fn, arg_sets, iters: int = 100) -> tuple[float, float]:
     with no host time between (the ~1 µs gaps between kernels count); where
     the launch queue fills before the sleep ends, fewer calls.  Call µs:
     CUDA events around ``iters`` back-to-back calls without the sleep, which
-    is the host's launch cost where that exceeds the device time."""
+    is the host's launch cost where that exceeds the device time.  The sleep
+    is three times what the host should need, and a queue the host was too
+    slow for is retried with fewer calls."""
     def run(i):
         fn(*arg_sets[i % len(arg_sets)])
 
@@ -482,8 +500,8 @@ def time_us(fn, arg_sets, iters: int = 100) -> tuple[float, float]:
     torch.cuda.synchronize()
     call = start.elapsed_time(end) / iters * 1e3
     n = iters
-    for _ in range(6):
-        sleep_ms = 2e-3 * n * call + 2.0  # the host queues a call in at most `call` µs
+    for _ in range(8):
+        sleep_ms = 3e-3 * n * call + 5.0  # the host queues a call in at most `call` µs
         torch.cuda._sleep(int(sleep_ms * SLEEP_CYCLES_PER_MS))
         t0 = time.perf_counter()
         start.record()
@@ -546,7 +564,7 @@ def phase_gn_timing(card: str) -> dict:
             dev, call = t[key]
             return f"{dev:.2f} (call {call:.2f})"
 
-        plan = gn_plan(xs[0])
+        plan, aplan = gn_plan(xs[0]), gn_apply_plan(xs[0])
         print(f"gn_site shape={shape} bf16, device us (call us): group_norm {fmt('gn')} "
               f"bound {bounds['gn'][0]:.2f} by {bounds['gn'][1]} share "
               f"{bounds['gn'][0] / t['gn'][0]:.2f}, plain {fmt('gn_plain')}, "
@@ -555,7 +573,7 @@ def phase_gn_timing(card: str) -> dict:
               f"{fmt('stats_plain')}, torch.var_mean {fmt('stats_library')} | apply "
               f"{fmt('apply')} bound {bounds['apply'][0]:.2f}, plain {fmt('apply_plain')}, "
               f"torch.addcmul {fmt('apply_library')} | stats plan {plan.describe()} "
-              f"| card={card}", flush=True)
+              f"| apply plan {aplan.describe()} | card={card}", flush=True)
         for name, key, lib in (("group_norm_stats", "stats", "stats_library"),
                                ("group_norm_apply", "apply", "apply_library")):
             site = {"shape": list(shape), "ms": t[key][0] / 1e3,
@@ -564,6 +582,10 @@ def phase_gn_timing(card: str) -> dict:
                     "library_ms": t[lib][0] / 1e3, "call_ms": t[key][1] / 1e3}
             if name == "group_norm_stats":
                 site["plan"] = plan.describe()
+            else:  # B2b's plan, and the whole group_norm (the pair) at the site
+                site.update(plan=aplan.describe(), group_norm_ms=t["gn"][0] / 1e3,
+                            group_norm_bound_ms=bounds["gn"][0] / 1e3,
+                            group_norm_call_ms=t["gn"][1] / 1e3)
             if shape == GN_SITES[0]:  # the kernel's row: the eval's full-scale site
                 per_kernel[name] = {**site, "sites": []}
             per_kernel[name]["sites"].append(site)
@@ -896,7 +918,8 @@ def kernel_counts(distill: int, gn: int) -> dict:
 
 def check_train_run(name: str, wd: str, result, keys) -> None:
     """Finite losses at step 0 (the trainer logs every 50) and at the last
-    step; the exported student.pth loads strictly into the eval model."""
+    step; with no eval there is no best ``weights``, and the last step's
+    student.pth in ``weights_final`` loads strictly into the eval model."""
     with open(os.path.join(wd, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     require([r["step"] for r in recs] == [0], f"{name} metrics.jsonl: {recs}")
@@ -904,17 +927,20 @@ def check_train_run(name: str, wd: str, result, keys) -> None:
     for r in (recs[0], last):
         require(all(math.isfinite(r[k]) for k in keys), f"{name}: non-finite loss: {r}")
         require(0.0 <= r.get("consensus_kept", 0.0) <= 1.0, f"{name}: consensus_kept {r}")
-    build_eval(get_preset(PRESET), os.path.join(wd, "weights"), DEVICE)
+    require(not os.path.exists(os.path.join(wd, "weights")),
+            f"{name}: a run with no eval wrote {wd}/weights")
+    build_eval(get_preset(PRESET), os.path.join(wd, "weights_final"), DEVICE)
     print(f"main path {name} metrics: " + json.dumps([{k: r[k] for k in ("step", *keys)}
                                                       for r in (recs[0], last)])
-          + "; student.pth loads strictly into the eval model", flush=True)
+          + "; no weights/ (no eval), weights_final/student.pth loads strictly into the eval "
+          "model", flush=True)
 
 
 def phase_chain_main_paths(work: str, data_paths: dict) -> tuple[dict, dict]:
-    """The self-training chain at full width from the warm-up's weights:
-    pseudolabel_generator -> calc_centroids -> train_self_training, then
-    train_dg; returns (launch counts by path, the chain's paths)."""
-    warm = os.path.join(work, "warmup", "weights")
+    """The self-training chain at full width from the warm-up's last-step
+    weights: pseudolabel_generator -> calc_centroids -> train_self_training,
+    then train_dg; returns (launch counts by path, the chain's paths)."""
+    warm = os.path.join(work, "warmup", "weights_final")
     city = data_paths["target_root"]
     # the chain's target set: the first N_IMAGES Cityscapes train images
     lists = {}

@@ -59,8 +59,14 @@ def main(argv=None, force_stage: str | None = None):
                                                args.centroid_path)
     result = run_training(cfg, state, step, eval_apply, work_dir=args.work_dir, device=device,
                           num_steps=args.num_steps, eval_limit=args.eval_limit)
-    print(f"done: best mIoU {result.best_miou:.4f} @ step {result.best_step}; "
-          f"weights in {args.work_dir}/weights", flush=True)
+    if result.best_miou > 0:
+        where = (f"best weights in {args.work_dir}/weights, the last step's in "
+                 f"{args.work_dir}/weights_final")
+    else:  # as the JAX trainer: no eval scored above 0, so no <work_dir>/weights
+        where = (f"no best weights (no eval above mIoU 0); the last step's in "
+                 f"{args.work_dir}/weights_final")
+    print(f"done: best mIoU {result.best_miou:.4f} @ step {result.best_step}; {where}",
+          flush=True)
     return result
 
 

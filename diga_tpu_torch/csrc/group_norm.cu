@@ -5,7 +5,8 @@
 //        fold of group_norm_pallas (:145-151)
 //        -> gn_stats_kernel, one launch      (C entry gn_stats)
 //   B2b  _norm_kernel  (:74, driven by _apply_affine :105-126)
-//        -> gn_apply_kernel                  (C entry gn_apply)
+//        -> gn_apply_kernel                  (C entry gn_apply; gn_forward
+//                                             launches the pair)
 // with the arithmetic of group_norm_pallas (:129-153) and the FusedGroupNorm
 // formula (diga_tpu/models/resnet_deeplab.py:225-234):
 //   per-channel Σx, Σx² in f32 over H·W; fold into G groups, n = H·W·(C/G);
@@ -62,14 +63,53 @@
 //   What bounds it now (on an H100 80GB HBM3, gn_probe.py, PERF.md): at the
 //   full-scale site the blocks finish reading x about 8 us after they
 //   start, and the exchange, the ticket (two L2 round trips) and the fold
-//   (one more) add about 2.7 us.
-// B2b streams x once more with 16-byte loads and stores (the 50 MB L2 often
-// still holds x); a one-pass or fused form is later work.
+//   (one more) add about 2.7 us.  Every block triggers B2b's launch (below)
+//   as its ring drains, so that tail is B2b's to use.
+//
+// B2b replaces _norm_kernel: y = round_to_T(x·mul) + add, mul/add per
+// (image, channel).  It is bound by bytes (read x, write y: 10.1 us at the
+// full-scale site, 2.56 us at the half-scale one), and at 3-24 us of work an
+// empty launch (about 2 us) and the gap after the kernel before it are a
+// large share.  Its design:
+//   1. Under B2a's tail.  gn_forward launches B2a and then B2b from one host
+//      call, B2b with the programmatic stream serialization attribute
+//      (programmatic dependent launch).  Every B2a block issues
+//      griddepcontrol.launch_dependents once its ring is drained, so B2b's
+//      blocks start while B2a exchanges, draws tickets and folds, and load
+//      their first rows of x then; griddepcontrol.wait comes before mul and
+//      add.  The rule that makes this safe: before its wait a B2b block
+//      reads nothing that the kernel launched just before it writes, and B2a
+//      only reads x.  A bare gn_apply may follow the kernel that wrote x (a
+//      conv), so it launches B2b without the attribute, in stream order,
+//      where the wait returns at once.
+//   2. A block-tiled grid.  Grid (chunks, batch): block (chunk, b) writes an
+//      even split of image b's rows, apply_threads(C) threads, a multiple of
+//      C/N, so thread (lane, v) owns one 16-byte channel vector: its mul and
+//      add are loaded once, into registers, and no 64-bit division is left
+//      per vector.  apply_plan (ops/group_norm.py) sets chunks: a few blocks
+//      a SM, shared out over the batch.
+//   3. Rows in registers.  A thread loads kApplyRows of its rows (16-byte
+//      loads, L2 only) before it stores any, and stores y with 16-byte
+//      stores.  Its shared memory is the image's mul and add alone (2·C
+//      values, read once a block), so a block lands beside B2a blocks that
+//      still hold their rings.  The tiled form (gn_probe.py --apply: 8 KB
+//      tiles bulk-copied into a ring of three under the same launch, y
+//      written over x and bulk-stored) was slower at every path site: the
+//      bulk copies read x more slowly than 16-byte loads at these sizes,
+//      and 16-byte stores out of the ring were slower still.
+//   What bounds it now (H100 80GB HBM3 at 700 W, chip_smoke.py phase 8 and
+//   gn_probe.py --apply, PERF.md): alone, B2b takes 12.3 / 5.4 / 16.3 /
+//   9.4 / 22.9 us at the five path sites against byte bounds of 10.1 /
+//   2.6 / 13.5 / 6.7 / 18.0, within a microsecond of the grid-stride kernel
+//   it replaces; an empty launch is 2.0 us, and reading x alone 8.9 us at
+//   the full-scale site and 4.9 at the half-scale one.  Under B2a's tail
+//   the launch and the first loads are hidden: the pair takes 1.7-2.9 us
+//   less than B2a and then B2b.
 //
 // The constants below are repeated in diga_tpu_torch/ops/group_norm.py (a
-// CPU test holds them equal), whose stats_plan chooses n_chunks.  Plain C
-// interface, loaded with ctypes.  Each entry launches on the caller's
-// stream, allocates nothing and returns the first CUDA error.
+// CPU test holds them equal), whose stats_plan and apply_plan choose the
+// grids.  Plain C interface, loaded with ctypes.  Each entry launches on the
+// caller's stream, allocates nothing and returns the first CUDA error.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -80,11 +120,13 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;      // B2a: one per 16-byte vector of a row, at most; B2b: a block
-constexpr int kTileBytes = 16384;  // one ring stage: kTileBytes / (C·elem) rows, at least one
-constexpr int kStages = 6;         // tiles in flight per block
-constexpr int kCluster = 8;        // blocks per cluster, along the chunk axis
-constexpr int kFoldBatch = 8;      // cluster rows loaded together by a folding thread
+constexpr int kThreads = 256;      // B2a: one per 16-byte vector of a row, at most
+constexpr int kTileBytes = 16384;  // B2a: one ring stage: kTileBytes / (C·elem) rows, at least one
+constexpr int kStages = 6;         // B2a: tiles in flight per block
+constexpr int kCluster = 8;        // B2a: blocks per cluster, along the chunk axis
+constexpr int kFoldBatch = 8;      // B2a: cluster rows loaded together by a folding thread
+constexpr int kApplyThreads = 256;  // B2b: a block's threads where a row has fewer vectors
+constexpr int kApplyRows = 4;       // B2b: rows a thread has in flight (16-byte loads)
 
 // 16 bytes of T as floats: 4 f32 or 8 bf16 values.
 template <typename T> struct Pack;
@@ -173,6 +215,18 @@ constexpr bool ring_covers_scratch(int elem) {
 }
 static_assert(ring_covers_scratch(2) && ring_covers_scratch(4), "scratch outgrows the ring");
 
+// B2b's geometry (the same formulas as ops/group_norm.py: apply_threads,
+// apply_smem_bytes; its apply_plan sets the grid).  Threads: one per 16-byte
+// vector of a row, in as many lanes of rows as fit in kApplyThreads (one
+// lane where a row has more).
+__host__ __device__ constexpr int apply_threads(int c, int elem) {
+  return (kApplyThreads / (c * elem / 16) > 0 ? kApplyThreads / (c * elem / 16) : 1) *
+         (c * elem / 16);
+}
+
+// Dynamic shared memory: the image's mul and add, 2·C values (at most 32 KB).
+__host__ __device__ constexpr int apply_smem_bytes(int c, int elem) { return 2 * c * elem; }
+
 // ---------------------------------------------------------------------------
 // mbarrier and the 1-D bulk copy (the TMA without a tensor map)
 // ---------------------------------------------------------------------------
@@ -251,6 +305,19 @@ __device__ __forceinline__ unsigned draw_ticket(unsigned* t) {
   unsigned old;
   asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;\n" : "=r"(old) : "l"(t) : "memory");
   return old;
+}
+
+// Programmatic dependent launch.  A kernel launched after this one with the
+// programmatic stream serialization attribute may start once every block of
+// this one has triggered (or exited); without such a kernel, a no-op.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Until the kernel before this one on the stream has finished and its
+// writes are visible; returns at once where the launch waited for it anyway.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -345,6 +412,7 @@ gn_stats_kernel(const T* __restrict__ x, int hw, int c, int groups, float n, flo
   }
 
   cluster_arrive_relaxed();  // this block's ring is free, its mbarrier initialised
+  launch_dependents();  // B2b may start: before its wait it only reads x, which B2a never writes
 
   // The block's lanes in [2][lanes][C] (lane-major), then the block's row:
   // the lanes folded in order, four channels at a time, each float4 sent
@@ -443,23 +511,59 @@ gn_stats_kernel(const T* __restrict__ x, int hw, int c, int groups, float n, flo
 // B2b
 // ---------------------------------------------------------------------------
 
-// Grid-stride over 16-byte vectors of x; mul/add are [batch, C] in T.
+// Grid (chunks, batch), apply_threads(C) threads; mul/add are [batch, C]
+// in T.  Block (chunk, b) writes rows [r0, r1) of image b, an even split of
+// H·W (to a row); thread (lane, v) owns 16-byte channel vector v of rows
+// r0 + lane, r0 + lane + lanes, ..., kApplyRows of them loaded into
+// registers before any is stored.  Before grid_dependency_wait the thread
+// reads only x, so the launch may overlap the tail of a kernel that does
+// not write x (B2a, in gn_forward); after it, mul and add.
 template <typename T>
-__global__ void gn_apply_kernel(const T* __restrict__ x, const T* __restrict__ mul,
-                                const T* __restrict__ add, T* __restrict__ y,
-                                long long n_vec, int c, long long hwc) {
+__global__ void __launch_bounds__(1024)
+gn_apply_kernel(const T* __restrict__ x, const T* __restrict__ mul, const T* __restrict__ add,
+                T* __restrict__ y, int hw, int c) {
   constexpr int N = Pack<T>::N;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n_vec; i += stride) {
-    const long long e = i * N;
-    const long long p = (e / hwc) * c + e % c;
-    float xv[N], m[N], a[N], out[N];
-    Pack<T>::load(x + e, xv);
-    Pack<T>::load(mul + p, m);
-    Pack<T>::load(add + p, a);
+  extern __shared__ __align__(128) unsigned char smem[];  // mul, then add, of image b
+  const int nv = c / N, lanes = blockDim.x / nv;
+  const int tid = threadIdx.x, v = tid % nv, lane = tid / nv;
+  const int b = blockIdx.y;
+  const int r1 = (int)((long long)(blockIdx.x + 1) * hw / gridDim.x);
+  int r = (int)((long long)blockIdx.x * hw / gridDim.x) + lane;  // this thread's next row
+  const long long at = (long long)b * hw * c + v * N;  // image b, channel vector v
+  uint4 xr[kApplyRows];
+  auto load = [&]() {
 #pragma unroll
-    for (int k = 0; k < N; ++k) out[k] = __fadd_rn(Pack<T>::round(__fmul_rn(xv[k], m[k])), a[k]);
-    Pack<T>::store(y + e, out);
+    for (int u = 0; u < kApplyRows; ++u)
+      if (r + u * lanes < r1)
+        xr[u] = __ldcg(reinterpret_cast<const uint4*>(x + at + (long long)(r + u * lanes) * c));
+  };
+  load();
+  grid_dependency_wait();
+  // mul and add from L2 (ld.global.cg), each 16-byte vector once a block,
+  // through shared memory: plain loads, through L1, read stale values under
+  // the launch overlap on the card (chip_smoke.py's bitwise check)
+  uint4* ma = reinterpret_cast<uint4*>(smem);
+  for (int j = tid; j < 2 * nv; j += blockDim.x)
+    ma[j] = __ldcg(reinterpret_cast<const uint4*>((j < nv ? mul : add) + (long long)b * c) +
+                   j % nv);
+  __syncthreads();
+  float m[N], a[N];
+  Pack<T>::unpack(ma[v], m);
+  Pack<T>::unpack(ma[nv + v], a);
+  for (;;) {
+#pragma unroll
+    for (int u = 0; u < kApplyRows; ++u)
+      if (r + u * lanes < r1) {
+        float xv[N], o[N];
+        Pack<T>::unpack(xr[u], xv);
+#pragma unroll
+        for (int k = 0; k < N; ++k)
+          o[k] = __fadd_rn(Pack<T>::round(__fmul_rn(xv[k], m[k])), a[k]);
+        Pack<T>::store(y + at + (long long)(r + u * lanes) * c, o);
+      }
+    r += kApplyRows * lanes;
+    if (r >= r1) break;
+    load();
   }
 }
 
@@ -529,13 +633,33 @@ int max_clusters(int c, int* out) {
 }
 
 template <typename T>
-int launch_apply(const void* x, const void* mul, const void* add, void* y, long long n_elems,
-                 int c, long long hwc, int n_blocks, cudaStream_t stream) {
+bool apply_ok(int batch, int hw, int c, int chunks) {
   constexpr int N = Pack<T>::N;
-  if (c % N != 0 || n_elems % N != 0 || n_blocks < 1) return (int)cudaErrorInvalidValue;
-  gn_apply_kernel<T><<<n_blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(mul), static_cast<const T*>(add),
-      static_cast<T*>(y), n_elems / N, c, hwc);
+  return c >= 32 && c % 32 == 0 && c / N <= 1024 && batch >= 1 && hw >= 1 && chunks >= 1 &&
+         chunks <= hw;
+}
+
+// B2b on the stream; with `after_stats`, as a programmatic dependent of the
+// kernel launched just before it (B2a on the same x), else in stream order.
+template <typename T>
+int launch_apply(const void* x, const void* mul, const void* add, void* y, int batch, int hw,
+                 int c, int chunks, bool after_stats, cudaStream_t stream) {
+  if (!apply_ok<T>(batch, hw, c, chunks)) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(chunks, batch);
+  cfg.dynamicSmemBytes = apply_smem_bytes(c, sizeof(T));
+  cfg.blockDim = dim3(apply_threads(c, sizeof(T)));
+  cfg.stream = stream;
+  cfg.attrs = after_stats ? &attr : nullptr;
+  cfg.numAttrs = after_stats ? 1 : 0;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, gn_apply_kernel<T>, static_cast<const T*>(x),
+                         static_cast<const T*>(mul), static_cast<const T*>(add),
+                         static_cast<T*>(y), hw, c);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -572,11 +696,33 @@ int gn_stats_max_clusters(int dtype, int c, int* out) {
   return (int)cudaErrorInvalidValue;
 }
 
-int gn_apply(int dtype, const void* x, const void* mul, const void* add, void* y,
-             long long n_elems, int c, long long hwc, int n_blocks, void* stream) {
+// B2b alone, in stream order: it may follow the kernel that wrote x.
+// chunks: blocks an image, 1 to hw (apply_plan).
+int gn_apply(int dtype, const void* x, const void* mul, const void* add, void* y, int batch,
+             int hw, int c, int chunks, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_apply<float>(x, mul, add, y, n_elems, c, hwc, n_blocks, s);
-  if (dtype == 1) return launch_apply<__nv_bfloat16>(x, mul, add, y, n_elems, c, hwc, n_blocks, s);
+#define GN_APPLY_ARGS x, mul, add, y, batch, hw, c, chunks, false, s
+  if (dtype == 0) return launch_apply<float>(GN_APPLY_ARGS);
+  if (dtype == 1) return launch_apply<__nv_bfloat16>(GN_APPLY_ARGS);
+#undef GN_APPLY_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// The pair of one GroupNorm, back to back from one host call: gn_stats'
+// arguments, then y and B2b's chunks.  B2b is launched as B2a's programmatic
+// dependent, so its blocks copy x into shared memory under B2a's tail.
+int gn_forward(int dtype, const void* x, int batch, int hw, int c, int groups, int n_chunks,
+               float n, float eps, const void* scale, const void* bias, void* part,
+               void* tickets, void* sums, void* sumsq, void* mul, void* add, void* y,
+               int apply_chunks, void* stream) {
+  const int err = gn_stats(dtype, x, batch, hw, c, groups, n_chunks, n, eps, scale, bias, part,
+                           tickets, sums, sumsq, mul, add, stream);
+  if (err) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GN_APPLY_ARGS x, mul, add, y, batch, hw, c, apply_chunks, true, s
+  if (dtype == 0) return launch_apply<float>(GN_APPLY_ARGS);
+  if (dtype == 1) return launch_apply<__nv_bfloat16>(GN_APPLY_ARGS);
+#undef GN_APPLY_ARGS
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,9 +17,11 @@ where autograd would need a backward.
 
 Each wrapper adds one to ``launches[<name>]`` when it launches its
 kernel; ``group_norm_stats`` is one launch per call (the block that draws
-an image's last ticket folds it).  ``stats_plan`` chooses that launch's
-grid around the kernel's fixed tile, ring and cluster; it is plain Python,
-so the CPU tests hold it.
+an image's last ticket folds it).  ``group_norm`` launches the pair from
+one host call (C entry ``gn_forward``), B2b as B2a's programmatic
+dependent, and adds one to both counts.  ``stats_plan`` and ``apply_plan``
+choose the two launches' grids around the kernels' fixed tiles; they are
+plain Python, so the CPU tests hold them.
 """
 
 from __future__ import annotations
@@ -37,7 +39,6 @@ launches = {"group_norm_stats": 0, "group_norm_apply": 0}
 
 _MAX_VECTORS_PER_ROW = 1024  # C / (16 bytes / element size)
 _MAX_GROUP_CHANNELS = 256  # C / groups
-_APPLY_THREADS = 256
 
 # group_norm.cu's B2a constants (a CPU test holds them equal to the source):
 # tiles of 16 KB (32 bf16 rows of 256 channels), six in flight per block,
@@ -47,6 +48,12 @@ TILE_BYTES = 16384
 STAGES = 6
 CLUSTER = 8
 THREADS = 256
+# and its B2b constants: 256 threads a block where a row has at most 256
+# 16-byte vectors, four rows of x in flight per thread
+APPLY_THREADS = 256
+APPLY_ROWS = 4
+# B2b's grid (plain Python only): blocks a SM, shared out over the images
+APPLY_BLOCKS_PER_SM = 4
 
 
 def reset_launches() -> None:
@@ -57,13 +64,15 @@ def reset_launches() -> None:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = native.load("group_norm")
-    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gn_stats.argtypes = [i, p, i, i, i, i, i, f, f, p, p, p, p, p, p, p, p, p]
     lib.gn_stats.restype = i
     lib.gn_stats_max_clusters.argtypes = [i, i, ctypes.POINTER(i)]
     lib.gn_stats_max_clusters.restype = i
-    lib.gn_apply.argtypes = [i, p, p, p, p, ll, i, ll, i, p]
+    lib.gn_apply.argtypes = [i, p, p, p, p, i, i, i, i, p]
     lib.gn_apply.restype = i
+    lib.gn_forward.argtypes = [i, p, i, i, i, i, i, f, f, p, p, p, p, p, p, p, p, p, i, p]
+    lib.gn_forward.restype = i
     return lib
 
 
@@ -229,6 +238,74 @@ def stats_plan(batch: int, hw: int, c: int, elem: int, max_clusters: int) -> Sta
     return StatsPlan(batch=batch, hw=hw, c=c, elem=elem, clusters=clusters)
 
 
+# ---------------------------------------------------------------------------
+# B2b's launch plan (plain Python; group_norm.cu repeats the formulas)
+# ---------------------------------------------------------------------------
+
+def apply_threads(c: int, elem: int) -> int:
+    """One thread per 16-byte vector of a row, in as many lanes of rows as
+    fit in ``APPLY_THREADS`` (one lane where a row has more vectors)."""
+    nv = c * elem // 16
+    return max(APPLY_THREADS // nv, 1) * nv
+
+
+def apply_smem_bytes(c: int, elem: int) -> int:
+    """Dynamic shared memory of one block: its image's mul and add."""
+    return 2 * c * elem
+
+
+@dataclasses.dataclass(frozen=True)
+class ApplyPlan:
+    batch: int
+    hw: int
+    c: int
+    elem: int
+    chunks: int  # blocks per image
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        return self.chunks, self.batch
+
+    @property
+    def threads(self) -> int:
+        return apply_threads(self.c, self.elem)
+
+    @property
+    def smem(self) -> int:
+        return apply_smem_bytes(self.c, self.elem)
+
+    @property
+    def lanes(self) -> int:
+        """Threads on one channel vector: they take every lanes-th row."""
+        return self.threads // (self.c * self.elem // 16)
+
+    def chunk_rows(self, chunk: int) -> tuple[int, int]:
+        """[r0, r1): the rows of each image that block ``chunk`` writes (an
+        even split, to a row, as the kernel computes it)."""
+        return chunk * self.hw // self.chunks, (chunk + 1) * self.hw // self.chunks
+
+    @property
+    def rows_per_thread(self) -> int:
+        """The most rows one thread writes (``APPLY_ROWS`` of them in flight)."""
+        most = -(-self.hw // self.chunks)  # rows of the largest block
+        return -(-most // self.lanes)
+
+    def describe(self) -> str:
+        return (f"grid={self.grid} threads={self.threads} rows/thread<={self.rows_per_thread} "
+                f"in flight {APPLY_ROWS} smem={self.smem} B")
+
+
+@functools.cache
+def apply_plan(batch: int, hw: int, c: int, elem: int, sm_count: int) -> ApplyPlan:
+    """B2b's launch for ``batch`` images of ``hw`` rows of C channels,
+    ``elem`` bytes each, on a card of ``sm_count`` SMs: ``APPLY_BLOCKS_PER_SM``
+    blocks a SM shared out over the images, at least one per image and at
+    most one per ``lanes`` rows (a row for every thread)."""
+    lanes = apply_threads(c, elem) // (c * elem // 16)
+    chunks = max(1, min(-(-hw // lanes), -(-APPLY_BLOCKS_PER_SM * sm_count // batch)))
+    return ApplyPlan(batch=batch, hw=hw, c=c, elem=elem, chunks=chunks)
+
+
 @functools.cache
 def max_clusters(device_index: int, dtype: torch.dtype, c: int) -> int:
     """Clusters of B2a's blocks for C channels that fit on the card at once.
@@ -266,31 +343,36 @@ def ticket_workspace(device: torch.device, n: int = 0, stream: int | None = None
 # wrappers: kernel on CUDA tensors, plain version on CPU tensors
 # ---------------------------------------------------------------------------
 
-def _stats_kernel(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int,
-                  eps: float):
+def _stats_args(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int,
+                eps: float, extra_bytes: int = 0):
+    """B2a's plan, its C entry's arguments up to ``mul``/``add``, and its
+    outputs (Σx, Σx², mul, add), all in one new byte buffer; the buffer's
+    first ``extra_bytes`` (a multiple of 16) are left for the caller."""
     b, h, w, c = x.shape
     hw = h * w
     check_stats_kernel(c, x.element_size(), num_groups)
     plan = stats_plan(b, hw, c, x.element_size(), max_clusters(x.device.index, x.dtype, c))
-    # one f32 buffer: cluster rows [b, clusters, 2, c], then Σx [b, c], Σx² [b, c];
-    # one x.dtype buffer: mul [b, c], add [b, c] (every piece 16-byte aligned)
+    # after the caller's bytes: mul [b, c], add [b, c] in x.dtype, then f32
+    # cluster rows [b, clusters, 2, c], Σx [b, c], Σx² [b, c] (every piece
+    # 16-byte aligned: C % 32 == 0)
+    n_small = 2 * b * c * x.element_size()
     n_part = 2 * b * plan.clusters * c
-    f32 = torch.empty(n_part + 2 * b * c, device=x.device, dtype=torch.float32)
+    buf = torch.empty(extra_bytes + n_small + 4 * (n_part + 2 * b * c), device=x.device,
+                      dtype=torch.uint8)
+    mul, add = buf[extra_bytes:extra_bytes + n_small].view(x.dtype).view(2, b, c).unbind(0)
+    f32 = buf[extra_bytes + n_small:].view(torch.float32)
     sums, sumsq = f32[n_part:].view(2, b, c).unbind(0)
-    mul, add = torch.empty((2, b, c), device=x.device, dtype=x.dtype).unbind(0)
     scale = scale.to(torch.float32).contiguous()
     bias = bias.to(torch.float32).contiguous()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     tickets = ticket_workspace(x.device, b * CLUSTER, stream)
     _check_aligned(x)
-    err = native.launch(x, _lib().gn_stats, native.DTYPE_CODES[x.dtype], x.data_ptr(), b, hw, c,
-                        num_groups, plan.chunks, float(hw * (c // num_groups)), eps,
-                        scale.data_ptr(), bias.data_ptr(), f32.data_ptr(), tickets.data_ptr(),
-                        sums.data_ptr(), sumsq.data_ptr(), mul.data_ptr(), add.data_ptr(),
-                        stream=stream)
-    if err:
-        raise RuntimeError(f"gn_stats kernel launch failed: CUDA error {err}")
-    return sums, sumsq, mul, add
+    args = (native.DTYPE_CODES[x.dtype], x.data_ptr(), b, hw, c, num_groups, plan.chunks,
+            float(hw * (c // num_groups)), eps, scale.data_ptr(), bias.data_ptr(),
+            f32.data_ptr(), tickets.data_ptr(), sums.data_ptr(), sumsq.data_ptr(),
+            mul.data_ptr(), add.data_ptr())
+    # scale and bias stay referenced until the launch
+    return buf, args, (sums, sumsq, mul, add), (scale, bias), stream
 
 
 def group_norm_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -300,28 +382,35 @@ def group_norm_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     _check_affine(x, scale, bias)
     if native.on_cpu(x):
         return group_norm_stats_plain(x, scale, bias, num_groups, eps)
-    out = _stats_kernel(x, scale, bias, num_groups, eps)
+    _, args, out, _affine, stream = _stats_args(x, scale, bias, num_groups, eps)
+    err = native.launch(x, _lib().gn_stats, *args, stream=stream)
+    if err:
+        raise RuntimeError(f"gn_stats kernel launch failed: CUDA error {err}")
     launches["group_norm_stats"] += 1
     return out
 
 
-def group_norm_apply(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor) -> torch.Tensor:
-    """B2b: y = x·mul + add in x.dtype."""
-    _check_x(x, 32)
+def _check_mul_add(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor) -> None:
     b, _, _, c = x.shape
     for v in (mul, add):
         if v.shape != (b, c) or v.dtype != x.dtype or v.device != x.device or not v.is_contiguous():
             raise ValueError(f"group_norm_apply: mul/add must be contiguous ({b}, {c}) "
                              f"{x.dtype} on {x.device}")
+
+
+def group_norm_apply(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor) -> torch.Tensor:
+    """B2b: y = x·mul + add in x.dtype.  Launched in stream order: it may
+    follow the kernel that wrote x."""
+    _check_x(x, 32)
+    _check_mul_add(x, mul, add)
     if native.on_cpu(x):
         return group_norm_apply_plain(x, mul, add)
+    b, h, w, c = x.shape
+    plan = apply_plan(b, h * w, c, x.element_size(), native.sm_count(x.device.index))
     y = torch.empty_like(x)
     _check_aligned(x, mul, add, y)
-    n_vec = x.numel() * x.element_size() // 16
-    n_blocks = min(-(-n_vec // _APPLY_THREADS), 16 * native.sm_count(x.device.index))
     err = native.launch(x, _lib().gn_apply, native.DTYPE_CODES[x.dtype], x.data_ptr(),
-                        mul.data_ptr(), add.data_ptr(), y.data_ptr(), x.numel(), c,
-                        x.numel() // b, n_blocks)
+                        mul.data_ptr(), add.data_ptr(), y.data_ptr(), b, h * w, c, plan.chunks)
     if err:
         raise RuntimeError(f"gn_apply kernel launch failed: CUDA error {err}")
     launches["group_norm_apply"] += 1
@@ -333,7 +422,22 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """GroupNorm of NHWC ``x`` with f32 per-channel ``scale``/``bias``.
 
     Same function as ``diga_tpu.ops.pallas_gn.group_norm_pallas`` and
-    ``FusedGroupNorm``: stats in f32, normalization in x.dtype.
+    ``FusedGroupNorm``: stats in f32, normalization in x.dtype.  On the card
+    one host call launches B2a and then B2b, which starts under B2a's tail
+    (B2a only reads x), and one allocation holds y and every other buffer.
     """
-    _, _, mul, add = group_norm_stats(x, scale, bias, num_groups, eps)
-    return group_norm_apply(x, mul, add)
+    _check_x(x, num_groups)
+    _check_affine(x, scale, bias)
+    if native.on_cpu(x):
+        return group_norm_plain(x, scale, bias, num_groups, eps)
+    b, h, w, c = x.shape
+    plan = apply_plan(b, h * w, c, x.element_size(), native.sm_count(x.device.index))
+    n_y = x.numel() * x.element_size()  # a multiple of 64 bytes: C % 32 == 0
+    buf, args, _, _affine, stream = _stats_args(x, scale, bias, num_groups, eps, n_y)
+    y = buf[:n_y].view(x.dtype).view(x.shape)
+    err = native.launch(x, _lib().gn_forward, *args, y.data_ptr(), plan.chunks, stream=stream)
+    if err:
+        raise RuntimeError(f"gn_forward (B2a + B2b) kernel launch failed: CUDA error {err}")
+    launches["group_norm_stats"] += 1
+    launches["group_norm_apply"] += 1
+    return y

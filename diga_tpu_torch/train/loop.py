@@ -5,10 +5,15 @@ Counterpart of ``diga_tpu/train/loop.py`` (:40-312) on one device:
     loader pairs, train_DiGA_gta2city_warm_up.py:117-136), built by host
     threads and copied to the device each step;
   * in-loop two-scale eval every ``eval_every`` steps through
-    ``TwoScaleEvaluator``, exporting the best student/teacher
-    (reference :343-373);
-  * the final role-keyed export of ``student.pth``/``teacher.pth``.
-Full-state checkpoints and ``--resume`` wait for ROADMAP queue A item 11.
+    ``TwoScaleEvaluator``, exporting the student/teacher to
+    ``<work_dir>/weights`` on each new best mIoU, as the JAX trainer's
+    ``on_best`` does (``diga_tpu/cli/train_seg.py:95-105``; reference
+    :343-373): a run with no eval, or none above mIoU 0, writes no
+    ``weights``;
+  * the last step's ``student.pth``/``teacher.pth`` in
+    ``<work_dir>/weights_final``, a weights-only stand-in for the JAX
+    trainer's full-state ``ckpt_final`` until full-state checkpoints and
+    ``--resume`` land (ROADMAP queue A item 11).
 """
 
 from __future__ import annotations
@@ -135,8 +140,8 @@ def run_training(cfg: ExperimentConfig, state: SegTrainState, step_fn: Callable,
                  eval_apply: Callable | None, work_dir: str, device: torch.device,
                  num_steps: int | None = None, eval_limit: int | None = None,
                  log_every: int = 50) -> TrainLoopResult:
-    """Sample, step, log, eval; export the best and the final weights to
-    ``<work_dir>/weights`` and ``<work_dir>/weights_best``."""
+    """Sample, step, log, eval; export the best weights to
+    ``<work_dir>/weights`` and the last step's to ``<work_dir>/weights_final``."""
     logger = MetricLogger(work_dir)
     steps = num_steps if num_steps is not None else cfg.train.num_steps
     it, loaders = make_train_iterator(cfg, wants_target(cfg))
@@ -171,11 +176,11 @@ def run_training(cfg: ExperimentConfig, state: SegTrainState, step_fn: Callable,
                 print(f"step {i}: val mIoU {miou:.4f}", flush=True)
                 if miou > best_miou:
                     best_miou, best_step = miou, i
-                    export_state_role_keyed(state, os.path.join(work_dir, "weights_best"))
+                    export_state_role_keyed(state, os.path.join(work_dir, "weights"))
                     print(f"saved best weights at step {i} (mIoU {miou:.4f})", flush=True)
     finally:
         for ld in loaders:
             ld.stop()
         logger.close()
-    export_state_role_keyed(state, os.path.join(work_dir, "weights"))
+    export_state_role_keyed(state, os.path.join(work_dir, "weights_final"))
     return TrainLoopResult(best_miou, best_step, {k: float(v) for k, v in metrics.items()})

@@ -14,8 +14,9 @@ are registered in both packages' preset registries; the port runs with
 * ``train_self_training``, 2 steps on pseudo-labels that the port's own
   generator wrote and centroids its own ``calc_centroids`` wrote: finite
   losses with ``loss_crossmix``, ``consensus_kept`` in [0, 1], and
-  ``student.pth``/``teacher.pth`` that load strictly;
-* ``train_dg``, 2 steps;
+  ``student.pth``/``teacher.pth`` in ``weights_final`` (no eval, so no
+  ``weights``) that load strictly;
+* ``train_dg``, 2 steps, likewise;
 * without ``--device cpu`` each raises here, and ``--extra
   fuse_forwards=true`` is refused.
 """
@@ -73,14 +74,15 @@ def _tiny(presets, name):
 
 @pytest.fixture(scope="module")
 def chain(tmp_path_factory):
-    """Fixtures, a student.pth from a JAX init, and the tiny presets in
-    both registries (restored afterwards)."""
+    """Fixtures, a student.pth from a JAX init in a warm-up's
+    ``weights_final`` (a warm-up with no eval writes no ``weights``), and
+    the tiny presets in both registries (restored afterwards)."""
     tmp = tmp_path_factory.mktemp("chain")
     gta_list = synthetic.make_gta5_fixture(str(tmp / "gta"), n=2, h=HW[0], w=HW[1])
     img, lbl = synthetic.make_cityscapes_fixture(str(tmp / "city"), n=2, h=HW[0], w=HW[1],
                                                  split="train")
     _, params, stats = jax_tiny_deeplab(seed=31, hw=HW)
-    wdir = str(tmp / "warmup" / "weights")
+    wdir = str(tmp / "warmup" / "weights_final")
     export_role_keyed(wdir, {"student": segmodel_to_torch(params, stats, LAYERS)})
     names = {"gta2city_warmup": "tiny_chain_warmup", "gta2city_selftrain": "tiny_chain_st",
              "dg_gta5": "tiny_chain_dg"}
@@ -179,8 +181,10 @@ def test_train_self_training_on_the_ports_own_pseudo_labels_and_centroids(chain,
     with open(os.path.join(wd, "metrics.jsonl")) as f:
         assert [json.loads(line)["step"] for line in f] == [0]
     cfg = port_presets.get_preset("tiny_chain_st")
-    _, model = build_eval(cfg, os.path.join(wd, "weights"), torch.device("cpu"))  # strict
-    model.load_state_dict(torch.load(os.path.join(wd, "weights", "teacher.pth")), strict=True)
+    assert not os.path.exists(os.path.join(wd, "weights"))  # no eval, so no best weights
+    final = os.path.join(wd, "weights_final")
+    _, model = build_eval(cfg, final, torch.device("cpu"))  # strict
+    model.load_state_dict(torch.load(os.path.join(final, "teacher.pth")), strict=True)
 
 
 def test_train_dg_two_steps(chain, capsys):
@@ -191,7 +195,8 @@ def test_train_dg_two_steps(chain, capsys):
     assert len(logged) == 1 and all(math.isfinite(v) for v in logged[0].values())
     assert set(result.last_metrics) == {"loss", "loss_semseg", "loss_distil"}
     assert all(math.isfinite(v) for v in result.last_metrics.values())
-    assert sorted(os.listdir(os.path.join(wd, "weights"))) == ["student.pth", "teacher.pth"]
+    assert not os.path.exists(os.path.join(wd, "weights"))  # no eval, so no best weights
+    assert sorted(os.listdir(os.path.join(wd, "weights_final"))) == ["student.pth", "teacher.pth"]
 
 
 def _argv(chain, cli):

@@ -4,7 +4,10 @@
 registered preset (layers (1, 1, 1, 1), crop 32x64, f32) on synthetic
 GTA5 and Cityscapes fixtures with ``--device cpu``: finite ``loss=`` lines,
 a ``metrics.jsonl``, and ``student.pth``/``teacher.pth`` that load into the
-port's eval model with ``strict=True``.  Without ``--device cpu`` it
+port's eval model with ``strict=True``.  The weight directories are the JAX
+trainer's (``diga_tpu/cli/train_seg.py:95-117``): ``<work_dir>/weights``
+only on a new best mIoU, the last step's in ``<work_dir>/weights_final``
+(the stand-in for JAX's ``ckpt_final``).  Without ``--device cpu`` it
 raises here (the default is the card), and the flags whose slices have not
 landed are refused.
 """
@@ -18,10 +21,12 @@ import re
 import pytest
 import torch
 
+import diga_tpu_torch.cli.train_seg as train_seg
 import diga_tpu_torch.cli.train_warm_up as cli
 from diga_tpu_torch.configs import presets
 from diga_tpu_torch.data import synthetic
-from diga_tpu_torch.train.build import build_eval
+from diga_tpu_torch.train import loop
+from diga_tpu_torch.train.build import _reference_state_dict, build_eval
 
 LAYERS = (1, 1, 1, 1)
 
@@ -66,7 +71,9 @@ def test_two_steps_log_and_export(argv, tmp_path, capsys):
         recs = [json.loads(line) for line in f]
     assert [r["step"] for r in recs] == [0]
     assert all(math.isfinite(r["loss_distil"]) and math.isfinite(r["loss_semseg"]) for r in recs)
-    wdir = str(tmp_path / "wd" / "weights")
+    # no eval ran, so no best weights: only the last step's (JAX writes no weights/ either)
+    assert not os.path.exists(tmp_path / "wd" / "weights")
+    wdir = str(tmp_path / "wd" / "weights_final")
     assert sorted(os.listdir(wdir)) == ["student.pth", "teacher.pth"]
     _, model = build_eval(_tiny(), wdir, torch.device("cpu"))  # strict load
     teacher = torch.load(os.path.join(wdir, "teacher.pth"))
@@ -89,19 +96,87 @@ def test_unported_flags_are_refused(argv, flags):
         cli.main([*argv, "--device", "cpu", *flags])
 
 
-def test_in_loop_eval_scores_and_exports_the_best(argv, tmp_path, monkeypatch):
+def _with_eval(argv, tmp_path, monkeypatch, num_steps=2):
+    """argv and the tiny preset with an eval after every step on one val image."""
     val_img, val_lbl = synthetic.make_cityscapes_fixture(str(tmp_path / "city"), n=1, h=40,
                                                          w=72, split="val")
     cfg = _tiny()
-    monkeypatch.setitem(presets.PRESETS, "tiny_warmup",
-                        dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
-                                                                           eval_every=1)))
-    result = cli.main([*argv, "--device", "cpu", "--val_img_list", val_img,
-                       "--val_lbl_list", val_lbl, "--eval_limit", "1"])
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, eval_every=1,
+                                                             num_steps=num_steps))
+    monkeypatch.setitem(presets.PRESETS, "tiny_warmup", cfg)
+    return cfg, [*argv, "--device", "cpu", "--val_img_list", val_img, "--val_lbl_list",
+                 val_lbl, "--eval_limit", "1"]
+
+
+def test_in_loop_eval_scores_and_exports_the_best(argv, tmp_path, monkeypatch):
+    cfg, argv = _with_eval(argv, tmp_path, monkeypatch)
+    result = cli.main(argv)
     with open(tmp_path / "wd" / "metrics.jsonl") as f:
         recs = [json.loads(line) for line in f]
     mious = [r["val/miou"] for r in recs if "val/miou" in r]
     assert len(mious) == 1 and 0.0 <= mious[0] <= 1.0  # step 1 (step 0 is never scored)
     assert result.best_step == (1 if mious[0] > 0 else 0)
-    if mious[0] > 0:  # the best weights load strictly into the eval model
-        build_eval(cfg, str(tmp_path / "wd" / "weights_best"), torch.device("cpu"))
+    # step 1 is the last: a best there writes weights/ beside weights_final
+    assert os.path.exists(tmp_path / "wd" / "weights") == (mious[0] > 0)
+    for d in ("weights", "weights_final") if mious[0] > 0 else ("weights_final",):
+        build_eval(cfg, str(tmp_path / "wd" / d), torch.device("cpu"))  # strict load
+
+
+@pytest.mark.parametrize("mious,best", [((0.2, 0.5, 0.3), 2), ((0.0, 0.0, 0.0), None)],
+                         ids=["best-before-last", "none-above-zero"])
+def test_weights_hold_the_best_step_and_weights_final_the_last(argv, tmp_path, monkeypatch,
+                                                               capsys, mious, best):
+    """4 steps, scored after steps 1-3 with the mIoUs fixed by the test:
+    ``weights`` holds the best step's student and teacher, ``weights_final``
+    the last step's, and a run with no mIoU above 0 writes no ``weights``."""
+    _, argv = _with_eval(argv, tmp_path, monkeypatch, num_steps=4)
+    scores = iter(mious)
+
+    class FixedScores(loop.TwoScaleEvaluator):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            real = self.score.get_scores
+            self.score.get_scores = lambda: ({**real()[0], "mean_iou": next(scores)},
+                                             real()[1])
+
+    monkeypatch.setattr(loop, "TwoScaleEvaluator", FixedScores)
+    snapshots = []  # per step, the student's and teacher's weights after it
+    build = train_seg.build_experiment
+
+    def recording_build(*a, **kw):
+        state, step, eval_apply = build(*a, **kw)
+
+        def recording_step(state, batch):
+            metrics = step(state, batch)
+            snapshots.append({role: {k: v.clone() for k, v in
+                                     _reference_state_dict(getattr(state, role)).items()}
+                              for role in ("student", "teacher")})
+            return metrics
+
+        return state, recording_step, eval_apply
+
+    monkeypatch.setattr(train_seg, "build_experiment", recording_build)
+    result = cli.main(argv)
+    out = capsys.readouterr().out
+    assert len(snapshots) == 4
+    with open(tmp_path / "wd" / "metrics.jsonl") as f:
+        assert [r["val/miou"] for r in map(json.loads, f) if "val/miou" in r] == list(mious)
+    wd = tmp_path / "wd"
+
+    def load(d, role):
+        return torch.load(os.path.join(wd, d, f"{role}.pth"))
+
+    def equal(a, b):
+        return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+    for role in ("student", "teacher"):
+        assert equal(load("weights_final", role), snapshots[-1][role])
+    if best is None:
+        assert result.best_miou == 0.0 and not os.path.exists(wd / "weights")
+        assert "no best weights" in out and "weights_final" in out
+        return
+    assert result.best_step == best and result.best_miou == max(mious)
+    for role in ("student", "teacher"):
+        assert equal(load("weights", role), snapshots[best][role])
+        assert not equal(load("weights", role), snapshots[-1][role])
+    assert f"best weights in {wd}/weights" in out
