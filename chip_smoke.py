@@ -9,15 +9,17 @@ the card, each through the CLI a user would call: the two-scale
 evaluation of DeepLabV2-R101 (``evaluate_val``), the GTA5->Cityscapes
 warm-up (``train_warm_up``), the self-training chain from the warm-up's
 weights (``pseudolabel_generator`` -> ``calc_centroids`` ->
-``train_self_training``) and the DG stage (``train_dg``).  Phases, any
-failure of which exits non-zero:
+``train_self_training``), the DG stage (``train_dg``), the
+SYNTHIA->Cityscapes chain at 16 classes and a ``--parity`` warm-up.
+Phases, any failure of which exits non-zero:
 
   1. device: require CUDA; print the card's name and power limit
   2. build: nvcc every kernel source, all at once (``-Xptxas -v`` lines)
   3. GroupNorm kernels (B2a/B2b) against their plain versions on the card,
      f32 (1e-5) and bf16 (3e-2), at the paths' shapes (the eval's
      (1, 129, 257, 256) and (1, 65, 129, 256), the teachers' (6, 65, 113,
-     256), (3, 65, 113, 256) and (8, 65, 113, 256)) and at the edges of
+     256), (3, 65, 113, 256) and (8, 65, 113, 256), calc_centroids
+     --source's (1, 91, 161, 256)) and at the edges of
      B2a's design: ragged, C=64, C=32, one row, fewer rows than one tile, a
      whole number of tiles, batch 6 with a ragged H·W, a base pointer
      16-byte but not 128-byte aligned; f32 channel sums at 1e-5 relative;
@@ -25,11 +27,12 @@ failure of which exits non-zero:
      ``group_norm`` (the pair, B2b launched under B2a's tail) and alone;
      three runs bitwise equal, with B2a's ticket workspace back at zero
      after each.  Distillation kernels (B1a/B1b) against theirs, f32 and
-     bf16, at the train paths' (6, 512, 896, 19) and (8, 512, 896, 19),
-     both on the 16-byte launch plan, and at the edges of their tiled
-     design: a ragged (2, 7, 13, 19) whose aug half is not 16-byte aligned,
-     K=16, K=32, fewer pixels than one tile, a whole number of tiles, an
-     offset base pointer; and peaky logits (x10) at (6, 512, 896, 19) in
+     bf16, at the train paths' (6, 512, 896, 19), (8, 512, 896, 19), (8,
+     512, 896, 16) and (6, 512, 896, 16), all on the 16-byte launch plan,
+     and at the edges of their tiled design: a ragged (2, 7, 13, 19) whose
+     aug half is not 16-byte aligned, K=16, K=32, fewer pixels than one
+     tile, a whole number of tiles, an offset base pointer; and peaky
+     logits (x10) at (6, 512, 896, 19) in
      bf16.  The loss at 1e-5 relative, the gradient within 1e-5 x max|ds|
      in f32 and one bf16 ulp in bf16, no teacher gradient, two runs bitwise
      equal
@@ -62,7 +65,18 @@ failure of which exits non-zero:
      3 steps) logs finite losses and a consensus_kept in [0, 1]; train_dg
      (preset dg_gta5: source 2 + 2, target 2 + 2, 3 steps).  Then the
      pseudo-label ms/img and the self-training and DG steps timed as in 6
-  8. kernel timing: per-site GroupNorm and distillation device times
+  8. main paths, SYNTHIA->Cityscapes at full width (R101, 16 classes,
+     bf16, synthetic SYNTHIA at its own 760x1280 with uint16 labels):
+     train_warm_up (preset synthia2city_warmup: OHEM, LR warm-up 1000,
+     ColorJitter p 0.7; source 1 + 3 at 720x1280 and 1140x1920, target 1 +
+     3, crop 512x896, 3 steps) -> pseudolabel_generator (2 images, the
+     16-class palette) -> calc_centroids on the target and with --source on
+     SYNTHIA (finite (16, 256)) -> train_self_training (preset
+     synthia2city_selftrain, 3 steps) -> evaluate_val at 16 classes (2 val
+     images, scores with mean_iou_13); then train_warm_up --parity (preset
+     gta2city_warmup, f32, the kornia chain, 2 steps).  Then the SYNTHIA
+     warm-up step timed as in 6
+  9. kernel timing: per-site GroupNorm and distillation device times
      (CUDA events around back-to-back calls queued behind a sleep kernel)
      against their byte bounds, plain versions and nearest library calls
      (``torch.addcmul`` for B2b, ``torch.var_mean`` for B2a), with the
@@ -75,8 +89,13 @@ it and read just after, and requires per run (B1a, B1b, B2a, B2b):
 evaluate_val (2 images) 0, 0, 24, 24; train_warm_up (3 steps) 3, 3, 18,
 18; pseudolabel_generator (2 images) 0, 0, 24, 24; calc_centroids (2
 images) 0, 0, 12, 12; train_self_training (3 steps) 3, 3, 36, 36;
-train_dg (3 steps) 3, 3, 18, 18.  A kernel's ``launches`` in the JSON line
-is its sum over these runs.
+train_dg (3 steps) 3, 3, 18, 18; the SYNTHIA chain the same per CLI
+(calc_centroids twice: target and source); train_warm_up --parity (2
+steps) 2, 2, 12, 12.  On a train path every B1a launch must be at its
+site: bf16 (6, 512, 896, 19) for the GTA5 warm-up and self-training, (8,
+512, 896, 19) for DG, (8, 512, 896, 16) and (6, 512, 896, 16) for the
+SYNTHIA warm-up and self-training, f32 (6, 512, 896, 19) under --parity.
+A kernel's ``launches`` in the JSON line is its sum over these runs.
 
 ``--profile DIR`` also writes torch.profiler tables and traces of one
 two-scale eval and of one warm-up, self-training and DG step into DIR,
@@ -132,11 +151,12 @@ F32_FLOPS_PER_S = 67e12
 SLEEP_CYCLES_PER_MS = 2_000_000  # torch.cuda._sleep at the H100's clock of at most 1.98 GHz
 GN_SITES = [(1, 129, 257, 256), (1, 65, 129, 256)]  # eval ASPP GN at full / half scale
 GN_TRAIN_SITES = [
-    (6, 65, 113, 256),  # the warm-up's and self-training's teacher on [source; mix], crop 512x896
-    (3, 65, 113, 256),  # the self-training teacher on the target
-    (8, 65, 113, 256),  # the DG teacher on [source; view]
+    (6, 65, 113, 256),  # the warm-ups' and self-trainings' teachers on 6 images, crop 512x896
+    (3, 65, 113, 256),  # the self-training teachers on the target
+    (8, 65, 113, 256),  # the DG and SYNTHIA warm-up teachers on 8 images
 ]
-GN_PATH_SITES = GN_SITES + GN_TRAIN_SITES
+GN_SOURCE_SITE = (1, 91, 161, 256)  # calc_centroids --source on the 720x1280 source stream
+GN_PATH_SITES = GN_SITES + GN_TRAIN_SITES + [GN_SOURCE_SITE]
 GN_CHECKS = [  # (shape, base pointer offset in bytes)
     *((s, 0) for s in GN_PATH_SITES),
     ((2, 17, 29, 256), 0),  # ragged
@@ -150,11 +170,16 @@ GN_CHECKS = [  # (shape, base pointer offset in bytes)
 ]
 DISTILL_SHAPE = (6, 512, 896, 19)  # warm-up/self-training upsampled [clean; aug] logits
 DISTILL_DG_SHAPE = (8, 512, 896, 19)  # the DG step's, 4 source images
-DISTILL_SITES = [DISTILL_SHAPE, DISTILL_DG_SHAPE]
+DISTILL_SYNTHIA_WARMUP_SHAPE = (8, 512, 896, 16)  # the SYNTHIA warm-up's, 1 + 3 source images
+DISTILL_SYNTHIA_SELFTRAIN_SHAPE = (6, 512, 896, 16)  # the SYNTHIA self-training's, 1 + 2
+DISTILL_SITES = [DISTILL_SHAPE, DISTILL_DG_SHAPE, DISTILL_SYNTHIA_WARMUP_SHAPE,
+                 DISTILL_SYNTHIA_SELFTRAIN_SHAPE]
 BOTH = (torch.float32, torch.bfloat16)
 DISTILL_CHECKS = [  # (shape, dtypes, logit scale, base pointer offset in elements)
     (DISTILL_SHAPE, BOTH, 3.0, 0),
     (DISTILL_DG_SHAPE, BOTH, 3.0, 0),
+    (DISTILL_SYNTHIA_WARMUP_SHAPE, BOTH, 3.0, 0),
+    (DISTILL_SYNTHIA_SELFTRAIN_SHAPE, BOTH, 3.0, 0),
     ((2, 7, 13, 19), BOTH, 3.0, 0),  # ragged; the aug half starts at 91·K·elem, not 16-aligned
     ((2, 9, 11, 16), BOTH, 3.0, 0),  # K=16 (SYNTHIA)
     ((2, 8, 16, 32), BOTH, 3.0, 0),  # K=32, the largest tiles
@@ -167,12 +192,17 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 PRESET = "gta2city_warmup"
 SELFTRAIN_PRESET = "gta2city_selftrain"
 DG_PRESET = "dg_gta5"
-PSEUDO_DIR = "pseudo_train_warm_up"  # the self-training preset's pseudo_dir
+SYNTHIA_PRESET = "synthia2city_warmup"
+SYNTHIA_SELFTRAIN_PRESET = "synthia2city_selftrain"
+PSEUDO_DIR = "pseudo_train_warm_up"  # the self-training presets' pseudo_dir
 OUT_HW, DS_HW = (1024, 2048), (512, 1024)
+SYNTHIA_HW = (760, 1280)  # SYNTHIA-RAND-CITYSCAPES' own image size
 N_IMAGES = 2
 SEED = 0
 TRAIN_STEPS = 3
-TRAIN_PATHS = ("train_warm_up", "train_self_training", "train_dg")
+PARITY_STEPS = 2
+TRAIN_PATHS = ("train_warm_up", "train_self_training", "train_dg", "synthia train_warm_up",
+               "synthia train_self_training", "parity train_warm_up")
 DEVICE = torch.device("cuda")  # the main paths' device, passed to every CLI as --device
 TPU_KERNELS = {  # name: (id, source, the TPU kernel it replaces)
     "distill_loss": ("B1a", "diga_tpu_torch/csrc/distill.cu", "diga_tpu/ops/pallas_kernels.py:35"),
@@ -819,7 +849,8 @@ def phase_train_main_path(work: str) -> tuple[dict, dict]:
             "--target_root", city_root, "--target_img_list", img_list,
             "--target_lbl_list", lbl_list]
     result, counts = run_path("train_warm_up", train_warm_up.main, argv,
-                              kernel_counts(TRAIN_STEPS, 6 * TRAIN_STEPS))
+                              kernel_counts(TRAIN_STEPS, 6 * TRAIN_STEPS),
+                              (torch.bfloat16, DISTILL_SHAPE))
     check_train_run("train_warm_up", wd, result, ("loss", "loss_semseg", "loss_distil"))
     return counts, {"source_root": gta_root, "source_list": gta_list, "target_root": city_root,
                     "target_img_list": img_list, "target_lbl_list": lbl_list}
@@ -897,17 +928,32 @@ def phase_train_timing(preset: str, data_paths: dict, card: str, profile_dir: st
     return out
 
 
-def run_path(name: str, fn, argv: list, want: dict):
+def run_path(name: str, fn, argv: list, want: dict, distill_site: tuple | None = None):
     """Drive one CLI with every launch count set to 0 just before and read
-    just after; require the counts to be ``want``."""
-    reset_launches()
-    t0 = time.perf_counter()
-    result = fn([*argv, "--device", DEVICE.type])
-    torch.cuda.synchronize()
-    counts = launches()
+    just after; require the counts to be ``want`` and, on a train path,
+    every B1a launch at ``distill_site`` = (dtype, shape)."""
+    sites = []
+    kernel = D.distillation_loss_kernel
+
+    def recorded(t, s, scale):
+        sites.append((t.dtype, tuple(t.shape)))
+        return kernel(t, s, scale)
+
+    D.distillation_loss_kernel = recorded
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        result = fn([*argv, "--device", DEVICE.type])
+        torch.cuda.synchronize()
+        counts = launches()
+    finally:
+        D.distillation_loss_kernel = kernel
     print(f"main path: {name} in {time.perf_counter() - t0:.1f} s (set-up and data loading "
-          f"included); launches={counts}", flush=True)
+          f"included); launches={counts}"
+          + (f"; B1a at {sorted(set(sites))}" if sites else ""), flush=True)
     require(counts == want, f"kernel launches on the {name} path {counts}, expected {want}")
+    require(distill_site is None or set(sites) == {distill_site},
+            f"B1a on the {name} path at {sorted(set(sites))}, expected {distill_site}")
     return result, counts
 
 
@@ -916,20 +962,22 @@ def kernel_counts(distill: int, gn: int) -> dict:
             "group_norm_stats": gn, "group_norm_apply": gn}
 
 
-def check_train_run(name: str, wd: str, result, keys) -> None:
+def check_train_run(name: str, wd: str, result, keys, preset: str = PRESET,
+                    steps: int = TRAIN_STEPS) -> None:
     """Finite losses at step 0 (the trainer logs every 50) and at the last
     step; with no eval there is no best ``weights``, and the last step's
-    student.pth in ``weights_final`` loads strictly into the eval model."""
+    student.pth in ``weights_final`` loads strictly into ``preset``'s eval
+    model."""
     with open(os.path.join(wd, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     require([r["step"] for r in recs] == [0], f"{name} metrics.jsonl: {recs}")
-    last = {"step": TRAIN_STEPS - 1, **result.last_metrics}
+    last = {"step": steps - 1, **result.last_metrics}
     for r in (recs[0], last):
         require(all(math.isfinite(r[k]) for k in keys), f"{name}: non-finite loss: {r}")
         require(0.0 <= r.get("consensus_kept", 0.0) <= 1.0, f"{name}: consensus_kept {r}")
     require(not os.path.exists(os.path.join(wd, "weights")),
             f"{name}: a run with no eval wrote {wd}/weights")
-    build_eval(get_preset(PRESET), os.path.join(wd, "weights_final"), DEVICE)
+    build_eval(get_preset(preset), os.path.join(wd, "weights_final"), DEVICE)
     print(f"main path {name} metrics: " + json.dumps([{k: r[k] for k in ("step", *keys)}
                                                       for r in (recs[0], last)])
           + "; no weights/ (no eval), weights_final/student.pth loads strictly into the eval "
@@ -960,27 +1008,14 @@ def phase_chain_main_paths(work: str, data_paths: dict) -> tuple[dict, dict]:
         "pseudolabel_generator", pseudolabel_generator.main,
         ["--preset", PRESET, "--weight_dir", warm, "--output_dir", pseudo, *data],
         kernel_counts(0, N_IMAGES * 2 * 6))  # images x scales x ASPP GroupNorm sites
-    files = sorted(os.listdir(pseudo))
-    require(n == N_IMAGES and len(files) == N_IMAGES, f"pseudo-labels: {n}, {files}")
-    for name in files:
-        im = Image.open(os.path.join(pseudo, name))
-        a = np.array(im)
-        require(im.mode == "P" and a.shape == OUT_HW and int(a.max()) < 19,
-                f"pseudo-label {name}: mode {im.mode}, shape {a.shape}, max {a.max()}")
-    print(f"pseudo-labels: {files} P-mode {OUT_HW}, classes used "
-          f"{sorted(set(np.unique(np.array(Image.open(os.path.join(pseudo, files[0])))).tolist()))}",
-          flush=True)
+    check_pseudo_labels(pseudo, n, 19)
 
     cdir = os.path.join(work, "centroids")
     cents, counts["calc_centroids"] = run_path(
         "calc_centroids", calc_centroids.main,
         ["--preset", PRESET, "--weight_dir", warm, "--centroid_dir", cdir, "--epochs", "1", *data],
         kernel_counts(0, N_IMAGES * 6))
-    vec = np.load(os.path.join(cdir, "feat_centroids.npy"))
-    require(vec.shape == (19, 256) and np.isfinite(vec).all() and float(cents.counts.sum()) > 0,
-            f"centroids {vec.shape}, finite {np.isfinite(vec).all()}, counts {cents.counts}")
-    print(f"centroids: (19, 256) finite, classes observed {int((cents.counts > 0).sum())}, "
-          f"counts {cents.counts.tolist()}", flush=True)
+    check_centroids(cdir, cents, 19, "target")
 
     centroid_path = os.path.join(cdir, "feat_centroids.npy")
     wd = os.path.join(work, "selftrain")
@@ -988,7 +1023,8 @@ def phase_chain_main_paths(work: str, data_paths: dict) -> tuple[dict, dict]:
         "train_self_training", train_self_training.main,
         ["--preset", SELFTRAIN_PRESET, "--work_dir", wd, "--num_steps", str(TRAIN_STEPS),
          "--load_weight_dir", warm, "--centroid_path", centroid_path, *data],
-        kernel_counts(TRAIN_STEPS, 2 * 6 * TRAIN_STEPS))  # teacher on [source; mix] and target
+        kernel_counts(TRAIN_STEPS, 2 * 6 * TRAIN_STEPS),  # teacher on [source; mix] and target
+        (torch.bfloat16, DISTILL_SHAPE))
     check_train_run("train_self_training", wd, result,
                     ("loss", "loss_semseg", "loss_crossmix", "loss_distil", "consensus_kept"))
 
@@ -996,10 +1032,118 @@ def phase_chain_main_paths(work: str, data_paths: dict) -> tuple[dict, dict]:
     result, counts["train_dg"] = run_path(
         "train_dg", train_dg.main,
         ["--preset", DG_PRESET, "--work_dir", wd, "--num_steps", str(TRAIN_STEPS), *data],
-        kernel_counts(TRAIN_STEPS, 6 * TRAIN_STEPS))
+        kernel_counts(TRAIN_STEPS, 6 * TRAIN_STEPS), (torch.bfloat16, DISTILL_DG_SHAPE))
     check_train_run("train_dg", wd, result, ("loss", "loss_semseg", "loss_distil"))
     return counts, {"warm": warm, "centroid_path": centroid_path,
                     "data": {**data_paths, **lists}}
+
+
+def check_pseudo_labels(pseudo: str, n: int, num_classes: int) -> None:
+    files = sorted(os.listdir(pseudo))
+    require(n == N_IMAGES and len(files) == N_IMAGES, f"pseudo-labels: {n}, {files}")
+    for name in files:
+        im = Image.open(os.path.join(pseudo, name))
+        a = np.array(im)
+        require(im.mode == "P" and a.shape == OUT_HW and int(a.max()) < num_classes,
+                f"pseudo-label {name}: mode {im.mode}, shape {a.shape}, max {a.max()}")
+    print(f"pseudo-labels: {files} P-mode {OUT_HW}, classes used "
+          f"{sorted(set(np.unique(np.array(Image.open(os.path.join(pseudo, files[0])))).tolist()))}",
+          flush=True)
+
+
+def check_centroids(cdir: str, cents, num_classes: int, what: str) -> None:
+    vec = np.load(os.path.join(cdir, "feat_centroids.npy"))
+    require(vec.shape == (num_classes, 256) and np.isfinite(vec).all()
+            and float(cents.counts.sum()) > 0,
+            f"{what} centroids {vec.shape}, finite {np.isfinite(vec).all()}, counts {cents.counts}")
+    print(f"{what} centroids: ({num_classes}, 256) finite, classes observed "
+          f"{int((cents.counts > 0).sum())}, counts {cents.counts.tolist()}", flush=True)
+
+
+def phase_synthia_chain(work: str, val_paths: dict, gta_paths: dict) -> tuple[dict, dict]:
+    """SYNTHIA->Cityscapes at full width, 16 classes, through the CLIs:
+    train_warm_up (synthia2city_warmup: OHEM, LR warm-up, ColorJitter p 0.7;
+    source 1 + 3 at 720x1280 and 1140x1920 from 760x1280 SYNTHIA images,
+    target 1 + 3; 3 steps) -> pseudolabel_generator (2 images) ->
+    calc_centroids on the target and with --source on SYNTHIA (2 images
+    each) -> train_self_training (synthia2city_selftrain, 3 steps) ->
+    evaluate_val at 16 classes (2 val images); then a --parity warm-up
+    (gta2city_warmup in f32 with the kornia chain, 2 steps).  Returns
+    (launch counts by path, the SYNTHIA warm-up's data paths)."""
+    t0 = time.perf_counter()
+    syn_root, city = os.path.join(work, "synthia"), os.path.join(work, "city_synthia")
+    syn_list = synthetic.make_synthia_fixture(syn_root, n=4, h=SYNTHIA_HW[0], w=SYNTHIA_HW[1])
+    img_list, lbl_list = synthetic.make_cityscapes_fixture(city, n=N_IMAGES, h=OUT_HW[0],
+                                                           w=OUT_HW[1], split="train")
+    print(f"SYNTHIA path setup (SYNTHIA {SYNTHIA_HW[0]}x{SYNTHIA_HW[1]} + Cityscapes fixtures): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    paths = {"source_root": syn_root, "source_list": syn_list, "target_root": city,
+             "target_img_list": img_list, "target_lbl_list": lbl_list}
+    data = [a for k, v in paths.items() for a in (f"--{k}", v)]
+    counts = {}
+
+    wd = os.path.join(work, "synthia_warmup")
+    result, counts["synthia train_warm_up"] = run_path(
+        "synthia train_warm_up", train_warm_up.main,
+        ["--preset", SYNTHIA_PRESET, "--work_dir", wd, "--num_steps", str(TRAIN_STEPS), *data],
+        kernel_counts(TRAIN_STEPS, 6 * TRAIN_STEPS), (torch.bfloat16, DISTILL_SYNTHIA_WARMUP_SHAPE))
+    check_train_run("synthia train_warm_up", wd, result, ("loss", "loss_semseg", "loss_distil"),
+                    preset=SYNTHIA_PRESET)
+    warm = os.path.join(wd, "weights_final")
+
+    pseudo = os.path.join(city, PSEUDO_DIR)
+    n, counts["synthia pseudolabel_generator"] = run_path(
+        "synthia pseudolabel_generator", pseudolabel_generator.main,
+        ["--preset", SYNTHIA_PRESET, "--weight_dir", warm, "--output_dir", pseudo, *data],
+        kernel_counts(0, N_IMAGES * 2 * 6))
+    check_pseudo_labels(pseudo, n, 16)
+
+    centroid_path = None
+    for source in (False, True):
+        what = "source (SYNTHIA)" if source else "target"
+        cdir = os.path.join(work, f"synthia_centroids_{'source' if source else 'target'}")
+        cents, counts[f"synthia calc_centroids {what.split()[0]}"] = run_path(
+            f"synthia calc_centroids {what}", calc_centroids.main,
+            ["--preset", SYNTHIA_PRESET, "--weight_dir", warm, "--centroid_dir", cdir,
+             "--epochs", "1", "--limit", str(N_IMAGES), *data] + (["--source"] if source else []),
+            kernel_counts(0, N_IMAGES * 6))
+        check_centroids(cdir, cents, 16, what)
+        centroid_path = centroid_path or os.path.join(cdir, "feat_centroids.npy")
+
+    wd = os.path.join(work, "synthia_selftrain")
+    result, counts["synthia train_self_training"] = run_path(
+        "synthia train_self_training", train_self_training.main,
+        ["--preset", SYNTHIA_SELFTRAIN_PRESET, "--work_dir", wd, "--num_steps", str(TRAIN_STEPS),
+         "--load_weight_dir", warm, "--centroid_path", centroid_path, *data],
+        kernel_counts(TRAIN_STEPS, 2 * 6 * TRAIN_STEPS),
+        (torch.bfloat16, DISTILL_SYNTHIA_SELFTRAIN_SHAPE))
+    check_train_run("synthia train_self_training", wd, result,
+                    ("loss", "loss_semseg", "loss_crossmix", "loss_distil", "consensus_kept"),
+                    preset=SYNTHIA_SELFTRAIN_PRESET)
+
+    results, counts["synthia evaluate_val"] = run_path(
+        "synthia evaluate_val", evaluate_val.main,
+        ["--preset", SYNTHIA_SELFTRAIN_PRESET, "--weight_dir", os.path.join(wd, "weights_final"),
+         "--eval_limit", str(N_IMAGES), "--target_root", val_paths["root"],
+         "--val_img_list", val_paths["val_img"], "--val_lbl_list", val_paths["val_lbl"]],
+        kernel_counts(0, N_IMAGES * 2 * 6))
+    scores = results.get("cityscapes", {})
+    require({"mean_iou", "mean_iou_13"} <= set(scores)
+            and all(0.0 <= scores[k] <= 1.0 for k in ("mean_iou", "mean_iou_13")),
+            f"16-class scores from evaluate_val: {results}")
+    print("synthia eval scores: " + json.dumps({k: float(v) for k, v in scores.items()}),
+          flush=True)
+
+    wd = os.path.join(work, "parity_warmup")
+    gta = [a for k in ("source_root", "source_list", "target_root", "target_img_list",
+                       "target_lbl_list") for a in (f"--{k}", gta_paths[k])]
+    result, counts["parity train_warm_up"] = run_path(
+        "parity train_warm_up", train_warm_up.main,
+        ["--preset", PRESET, "--parity", "--work_dir", wd, "--num_steps", str(PARITY_STEPS),
+         *gta], kernel_counts(PARITY_STEPS, 6 * PARITY_STEPS), (torch.float32, DISTILL_SHAPE))
+    check_train_run("parity train_warm_up", wd, result, ("loss", "loss_semseg", "loss_distil"),
+                    steps=PARITY_STEPS)
+    return counts, paths
 
 
 def phase_pseudolabel_timing(warm: str, data: dict, card: str) -> float:
@@ -1127,9 +1271,17 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_train_timing(DG_PRESET, chain["data"], card, args.profile)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 8. main paths: SYNTHIA->Cityscapes and a --parity warm-up
+        synthia_counts, synthia_paths = phase_synthia_chain(work, paths, data_paths)
+        counts.update(synthia_counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_train_timing(SYNTHIA_PRESET, synthia_paths, card, None)
     gc.collect()
     torch.cuda.empty_cache()
-    # 8. kernel timing and the record lines
+    # 9. kernel timing and the record lines
     per_kernel = {**phase_gn_timing(card), **phase_distill_timing(card)}
     for path, c in counts.items():
         used = [k for k, (_, src, _) in TPU_KERNELS.items()

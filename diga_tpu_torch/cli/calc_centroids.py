@@ -2,11 +2,12 @@
 
 Counterpart of ``diga_tpu/cli/calc_centroids.py`` (:24-119), the reference
 calc_centroids.py:17-81: several epochs over the target train set (the
-default, after the warm-up) or, with ``--source``, over the source set
-mixed by the frozen translator and CrDoMix with its labels, accumulating
-per-class masked feature means with 'mean' updates.  The model is
-``build_eval``'s frozen eval model (GroupNorm on the kernel B2a/B2b on the
-card); the centroids stay on the device until they are saved.  The
+default, after the warm-up) or, with ``--source``, over the GTA5 or
+SYNTHIA source set mixed by the frozen translator and CrDoMix with its
+labels, accumulating per-class masked feature means with 'mean' updates.
+The model is ``build_eval``'s frozen eval model (GroupNorm on the kernel
+B2a/B2b on the card); the centroids stay on the device until they are
+saved.  The
 CrDoMix selections come from a ``torch.Generator`` seeded with the
 preset's seed.
 
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..data import cityscapes_dataset, gta5_dataset
+from ..data import cityscapes_dataset, gta5_dataset, synthia_dataset
 from ..models.translator import translate
 from ..ops.mixing import crdomix, sample_half_classes
 from ..ops.prototypes import Centroids, masked_class_means, update_centroids
@@ -54,10 +55,12 @@ def main(argv=None):
 
     if args.source:
         spec = cfg.data.source_streams[0]
-        if spec.kind != "gta5":
+        sources = {"gta5": gta5_dataset, "synthia": synthia_dataset}
+        if spec.kind not in sources:
             p.error(f"--source on a {spec.kind!r} source is not ported yet "
-                    "(SYNTHIA and semiseg: ROADMAP queue A items 10 and 14)")
-        ds = gta5_dataset(cfg.data.source_root, cfg.data.source_list, resize_hw=spec.resize_hw)
+                    "(semiseg: ROADMAP queue A item 14)")
+        ds = sources[spec.kind](cfg.data.source_root, cfg.data.source_list,
+                                resize_hw=spec.resize_hw)
         translator = init_translator_frozen(cfg, args.weight_dir, device).requires_grad_(False)
         dtype = compute_dtype(cfg)
         amp = torch.autocast(device.type, dtype=dtype, enabled=dtype != torch.float32)

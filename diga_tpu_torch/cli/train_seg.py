@@ -5,7 +5,7 @@ Counterpart of ``diga_tpu/cli/train_seg.py`` (:50-119) on one device, with
 slices land: ``--resume`` (full-state checkpoints), ``--pretrained_backbone``
 (the Caffe ResNet-101 init is not in the repository and nothing is
 downloaded), the multi-device flags, the translator stage, and the step
-options that are not ported (``--extra fuse_forwards``, OHEM, ...).
+options that are not ported (``--extra fuse_forwards``, the semiseg knobs).
 
 Usage:
   python -m diga_tpu_torch.cli.train_warm_up --preset gta2city_warmup \\
@@ -14,6 +14,9 @@ Usage:
   python -m diga_tpu_torch.cli.train_self_training --preset gta2city_selftrain \\
       --load_weight_dir ./work_dir/warmup/weights \\
       --centroid_path ./work_dir/centroids/feat_centroids.npy ...
+  python -m diga_tpu_torch.cli.train_warm_up --preset synthia2city_warmup \\
+      --source_root ./data/SYNTHIA --target_root ./data/Cityscapes ...
+  (``--parity`` on any of them: f32 and the kornia photometric chain)
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ def main(argv=None, force_stage: str | None = None):
                 f"{TRAIN_STAGES} (translator training is ROADMAP queue A item 13)")
     try:
         make_step_config(cfg)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         p.error(str(e))
     device = resolve_device(args.device)
     state, step, eval_apply = build_experiment(cfg, device, args.load_weight_dir,

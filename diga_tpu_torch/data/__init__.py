@@ -6,6 +6,8 @@ from .datasets import (
     gta5_dataset,
     mapillary_dataset,
     read_list,
+    read_synthia_label,
+    synthia_dataset,
 )
 from .normalize import IMG_MEAN_BGR, normalize_image
 from .transforms import Compose, RandomCrop, RandomHorizontallyFlip, RandomSizedAndCrop

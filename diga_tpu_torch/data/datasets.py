@@ -1,20 +1,21 @@
 """File-list segmentation datasets (numpy/PIL).
 
 The port's own copy of ``diga_tpu/data/datasets.py``: ``SegDataset`` with
-the training-time geometric augmentation, the GTA5 rare-class
-resampling and the self-training pseudo-labels, and the GTA5, Cityscapes
-and val constructors.  SYNTHIA comes with a later slice.  The JAX package
-routes the uint8 remap and the normalize through its C host ops; their
-numpy forms below give the same values bit for bit.
+the training-time geometric augmentation, the rare-class resampling and
+the self-training pseudo-labels, and the GTA5, SYNTHIA, Cityscapes, BDD
+and Mapillary constructors.  The JAX package routes the uint8 remap and
+the normalize through its C host ops; their numpy forms below give the
+same values bit for bit.
 
 Reference citations: GTA5Loader.py:35-112, CityLoader.py:30-138,
-MapillaryLoader.py:133+, BDDLoader.py:35+.
+SYNTHIALoader.py:59-141, MapillaryLoader.py:133+, BDDLoader.py:35+.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Callable
 
 import numpy as np
 from PIL import Image
@@ -49,6 +50,48 @@ def _read_image(path: str) -> Image.Image:
     return Image.open(path).convert("RGB")
 
 
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def _png_header(path: str) -> tuple[int, int] | None:
+    """(bit depth, colour type) from a PNG's IHDR chunk; None for another format."""
+    with open(path, "rb") as f:
+        head = f.read(26)
+    if len(head) < 26 or head[:8] != _PNG_SIGNATURE or head[12:16] != b"IHDR":
+        return None
+    return head[24], head[25]
+
+
+def read_synthia_label(path: str) -> Image.Image:
+    """SYNTHIA GT: a uint16 PNG with the class id in channel 0, as an
+    int32 ``I`` image (reference: SYNTHIALoader.py:98, imageio's PNG-FI).
+
+    A grayscale PNG is read by PIL, which keeps its 16 bits.  PIL, and
+    imageio through it, read a 16-bit colour PNG as 8 bits, so a PNG of
+    more than one channel is read by OpenCV, which keeps them, and raises
+    where OpenCV is not installed: a label is never cut to 8 bits.
+    """
+    header = _png_header(path)
+    if header is not None and header[1] == 0:  # colour type 0: one gray channel
+        arr = np.asarray(Image.open(path))
+    else:
+        try:
+            import cv2
+        except ImportError:
+            cv2 = None
+        arr = None if cv2 is None else cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        if arr is None:
+            what = ("not a PNG" if header is None
+                    else f"a {header[0]}-bit PNG of colour type {header[1]}")
+            raise ValueError(
+                f"cannot read the SYNTHIA label {path!r} ({what}) without truncating it: "
+                "PIL reads only a grayscale PNG at 16 bits, and OpenCV is "
+                + ("not installed" if cv2 is None else "unable to decode it"))
+        if arr.ndim == 3:
+            arr = arr[:, :, 2]  # OpenCV orders the channels BGR(A): the file's first is [2]
+    return Image.fromarray(arr.astype(np.int32), mode="I")
+
+
 @dataclasses.dataclass
 class SegDataset:
     """Paths + decode + resize + geometric aug + normalize; yields numpy samples.
@@ -74,6 +117,7 @@ class SegDataset:
     transform: Compose | None = None
     rare_class_resample: bool = False
     pseudo_dir: str | None = None
+    lbl_reader: Callable[[str], Image.Image] = Image.open
 
     def __post_init__(self):
         if len(self.img_list) != len(self.lbl_list):
@@ -108,7 +152,7 @@ class SegDataset:
 
     def __getitem__(self, index: int, rng: np.random.Generator | None = None) -> dict:
         image = _read_image(self.img_path(index))
-        masks = [Image.open(self.lbl_path(index))]
+        masks = [self.lbl_reader(self.lbl_path(index))]
         if self.pseudo_dir is not None:
             masks.append(Image.open(self.pseudo_path(index)))
         if self.resize_hw is not None:
@@ -144,6 +188,15 @@ def gta5_dataset(root: str, list_path: str, **kw) -> SegDataset:
     return SegDataset(root=root, img_list=names, lbl_list=names,
                       img_template="images/{name}", lbl_template="labels/{name}",
                       lut=label_maps.GTA5_LUT, **kw)
+
+
+def synthia_dataset(root: str, list_path: str, **kw) -> SegDataset:
+    """SYNTHIA: RGB/<name>, GT/LABELS/<name>.  reference: SYNTHIALoader.py:80-82"""
+    names = read_list(list_path)
+    kw.setdefault("rare_class_resample", True)
+    return SegDataset(root=root, img_list=names, lbl_list=names,
+                      img_template="RGB/{name}", lbl_template="GT/LABELS/{name}",
+                      lut=label_maps.SYNTHIA_LUT, lbl_reader=read_synthia_label, **kw)
 
 
 def cityscapes_dataset(

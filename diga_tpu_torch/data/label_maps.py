@@ -1,8 +1,7 @@
 """Label-id remapping tables and class names of the val datasets.
 
-The port's own copy of ``diga_tpu/data/label_maps.py``: the val and GTA5
-tables, the pseudo-label LUT and the palettes (the SYNTHIA id table comes
-with the SYNTHIA slice).
+The port's own copy of ``diga_tpu/data/label_maps.py``: the val, GTA5
+and SYNTHIA tables, the pseudo-label LUT and the palettes.
 
 All tables are dense lookup tables (LUTs), so the remap is one vectorized
 ``np.take`` (reference: CityLoader.py:113-114, MapillaryLoader.py:39-131,
@@ -21,6 +20,14 @@ CITYSCAPES_ID_TO_TRAINID = {
     7: 0, 8: 1, 11: 2, 12: 3, 13: 4, 17: 5,
     19: 6, 20: 7, 21: 8, 22: 9, 23: 10, 24: 11, 25: 12,
     26: 13, 27: 14, 28: 15, 31: 16, 32: 17, 33: 18,
+}
+
+# SYNTHIA labelId -> trainId (16 classes).
+# reference: Synthia/util/loader/SYNTHIALoader.py:75-77
+SYNTHIA_ID_TO_TRAINID = {
+    3: 0, 4: 1, 2: 2, 21: 3, 5: 4, 7: 5,
+    15: 6, 9: 7, 6: 8, 1: 9, 10: 10, 17: 11,
+    8: 12, 19: 13, 12: 14, 11: 15,
 }
 
 # Mapillary Vistas (66 classes) -> Cityscapes trainId (19 classes).
@@ -93,6 +100,7 @@ def build_lut(mapping: dict[int, int], size: int = 256, fill: int = IGNORE_LABEL
 
 CITYSCAPES_LUT = build_lut(CITYSCAPES_ID_TO_TRAINID)
 GTA5_LUT = CITYSCAPES_LUT
+SYNTHIA_LUT = build_lut(SYNTHIA_ID_TO_TRAINID)
 MAPILLARY_LUT = build_lut(MAPILLARY_ID_TO_TRAINID)
 # BDD100k labels already come as trainIds: 0..18 kept, everything else
 # ignored.  reference: BDDLoader.py:120-125

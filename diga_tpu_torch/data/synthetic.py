@@ -1,7 +1,7 @@
 """Synthetic fixtures for tests and the on-card smoke run.
 
-The port's own copy of fixtures of ``diga_tpu/data/synthetic.py``: GTA5-
-and Cityscapes-shaped directory trees of PNGs with known label
+The port's own copy of fixtures of ``diga_tpu/data/synthetic.py``: GTA5-,
+SYNTHIA- and Cityscapes-shaped directory trees of PNGs with known label
 histograms, and the flat layout the BDD/Mapillary loaders read.  Same
 seeds, same pixels as the JAX package's fixtures.
 """
@@ -13,7 +13,7 @@ import os
 import numpy as np
 from PIL import Image
 
-from .label_maps import CITYSCAPES_ID_TO_TRAINID
+from .label_maps import CITYSCAPES_ID_TO_TRAINID, SYNTHIA_ID_TO_TRAINID
 
 
 def _blocky_label(rng: np.random.Generator, h: int, w: int, ids: list[int]) -> np.ndarray:
@@ -50,6 +50,29 @@ def make_gta5_fixture(root: str, n: int = 4, h: int = 64, w: int = 128, seed: in
         lbl = _blocky_label(rng, h, w, raw_ids)
         Image.fromarray(img).save(os.path.join(root, "images", name))
         Image.fromarray(lbl).save(os.path.join(root, "labels", name))
+        names.append(name)
+    list_path = os.path.join(root, "train.txt")
+    with open(list_path, "w") as f:
+        f.write("\n".join(names) + "\n")
+    return list_path
+
+
+def make_synthia_fixture(root: str, n: int = 3, h: int = 64, w: int = 128, seed: int = 2) -> str:
+    """RGB/<name>.png + GT/LABELS/<name>.png (uint16 grayscale label ids) +
+    list file; returns the list path.  The real SYNTHIA GT is a 3-channel
+    uint16 PNG with the class id in channel 0, which PIL cannot write; the
+    reader takes both."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "RGB"), exist_ok=True)
+    os.makedirs(os.path.join(root, "GT", "LABELS"), exist_ok=True)
+    ids = list(SYNTHIA_ID_TO_TRAINID.keys())
+    names = []
+    for i in range(n):
+        name = f"{i:07d}.png"
+        img = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+        lbl16 = _blocky_label(rng, h, w, ids).astype(np.uint16)
+        Image.fromarray(img).save(os.path.join(root, "RGB", name))
+        Image.fromarray(lbl16, mode="I;16").save(os.path.join(root, "GT", "LABELS", name))
         names.append(name)
     list_path = os.path.join(root, "train.txt")
     with open(list_path, "w") as f:

@@ -1,18 +1,22 @@
-"""On-device photometric augmentation, the ``diga`` chain.
+"""On-device photometric augmentation, the ``diga`` and ``kornia`` chains.
 
-Counterpart of ``diga_tpu/ops/photometric.py`` (:36-168, :258-285).  The
+Counterpart of ``diga_tpu/ops/photometric.py`` (:36-285).  The
 reference builds kornia Sequential(ColorJitter(b=.4, c=.4, s=.2, h=.1,
 p=.5), RandomGrayscale(p=.3), RandomGaussianBlur(3x3, sigma=2, p=.8),
 RandomSharpness(.5, p=.3)) and blends ``beta*norm(aug(x)) + (1-beta)*x``
 (train_DiGA_gta2city_warm_up.py:105-111,233).  The ``diga`` variant, the
 JAX package's default, de-normalizes to unit BGR, augments there and
-re-normalizes (its documented deviation).  The ``kornia`` variant
-(:171-255) is not ported yet.
+re-normalizes (its documented deviation).  The ``kornia`` variant, which
+``--parity`` selects, applies the reconstructed kornia-0.5.8 chain to the
+normalized tensor itself, as the reference does, and keeps the trailing
+``2x - 1`` of the reference's ``norm``.
 
-Draws are split from their application: ``draw(generator, b)`` returns the
-per-image factors and gates from an explicit ``torch.Generator``, and
-``photometric_chain`` / ``diga_photometric`` apply them, so a test can
-inject the JAX package's draws.  Images are NHWC, as at the JAX package's functions.
+Draws are split from their application: ``draw(generator, b)`` and
+``draw_kornia(generator, b)`` return the per-image factors and gates from
+an explicit ``torch.Generator``, and ``photometric_chain`` /
+``kornia_photometric_chain`` / ``diga_photometric`` apply them, so a test
+can inject the JAX package's draws.  Images are NHWC, as at the JAX
+package's functions.
 """
 
 from __future__ import annotations
@@ -26,6 +30,11 @@ import torch.nn.functional as F
 from ..data.normalize import IMG_MEAN_BGR
 
 _GRAY_W_BGR = (0.114, 0.587, 0.299)  # luma weights in BGR channel order
+# kornia's RGB luma weights, applied by the kornia chain to the channels as
+# given (BGR: the reference never flips)
+_GRAY_W_AS_GIVEN = (0.299, 0.587, 0.114)
+# kornia-0.5.8 RandomSharpness's degenerate kernel
+_SHARP_KERNEL = ((1.0, 1.0, 1.0), (1.0, 5.0, 1.0), (1.0, 1.0, 1.0))
 
 
 def _mean(x: torch.Tensor) -> torch.Tensor:
@@ -166,11 +175,112 @@ def photometric_chain(x: torch.Tensor, draws: dict[str, torch.Tensor], *,
     return x
 
 
+def draw_kornia(generator: torch.Generator, b: int,
+                p_jitter: float = 0.5) -> dict[str, torch.Tensor]:
+    """The draws of one ``kornia_photometric_chain`` from ``generator`` on its
+    device: ``order``, one permutation of the four jitters (brightness,
+    contrast, saturation, hue) shared by the batch, as kornia samples one
+    ``randperm(4)`` per forward; and per image (shape (b,)) the brightness
+    offset U(-.4, .4) (additive), the contrast, saturation and hue factors
+    U(.6, 1.4), U(.8, 1.2), U(-.1, .1), the gates of ColorJitter
+    (p=``p_jitter``), RandomGrayscale (p=.3), RandomGaussianBlur (p=.8) and
+    RandomSharpness (p=.3), and the sharpness factor U(0, .5)."""
+    dev = generator.device
+
+    def uniform(lo, hi):
+        return torch.rand(b, generator=generator, device=dev) * (hi - lo) + lo
+
+    def gate(p):
+        return torch.rand(b, generator=generator, device=dev) < p
+
+    return {
+        "order": torch.randperm(4, generator=generator, device=dev),
+        "brightness": uniform(-0.4, 0.4),
+        "contrast": uniform(0.6, 1.4),
+        "saturation": uniform(0.8, 1.2),
+        "hue": uniform(-0.1, 0.1),
+        "jitter": gate(p_jitter),
+        "gray": gate(0.3),
+        "blur": gate(0.8),
+        "sharp": gate(0.3),
+        "sharp_factor": uniform(0.0, 0.5),
+    }
+
+
+def _with_channel(hsv: torch.Tensor, i: int, value: torch.Tensor) -> torch.Tensor:
+    parts = list(hsv.unbind(-1))
+    parts[i] = value
+    return torch.stack(parts, dim=-1)
+
+
+def kornia_photometric_chain(x: torch.Tensor, draws: dict[str, torch.Tensor], *,
+                             with_sharpness: bool = True) -> torch.Tensor:
+    """The reconstructed kornia-0.5.8 chain on the NHWC tensor as given (the
+    reference feeds the normalized BGR batch, range about [-2, 1.2], to
+    kornia ops that assume unit RGB): the four jitters in ``draws['order']``
+    (brightness additive then clamped to [0, 1], contrast multiplicative
+    then clamped, saturation and hue through HSV on the channels as given,
+    not clamped), grayscale with RGB weights on the as-given channels, the
+    3x3 sigma-2 blur with reflect padding (not clamped), and the sharpness
+    blend toward the ``[[1,1,1],[1,5,1],[1,1,1]]/13`` conv (zero padding)
+    clamped to [0, 1], interior pixels only, the blend not clamped."""
+
+    def per_image(v):
+        return v.to(x.device).reshape(-1, 1, 1, 1)
+
+    def brightness(v):
+        return torch.clamp(v + per_image(draws["brightness"]), 0.0, 1.0)
+
+    def contrast(v):
+        return torch.clamp(v * per_image(draws["contrast"]), 0.0, 1.0)
+
+    def saturation(v):
+        hsv = rgb_to_hsv(v)
+        scaled = hsv[..., 1] * per_image(draws["saturation"])[..., 0]
+        return hsv_to_rgb(_with_channel(hsv, 1, scaled))
+
+    def hue(v):
+        hsv = rgb_to_hsv(v)
+        shifted = torch.remainder(hsv[..., 0] + per_image(draws["hue"])[..., 0], 1.0)
+        return hsv_to_rgb(_with_channel(hsv, 0, shifted))
+
+    jitters = (brightness, contrast, saturation, hue)
+    xj = x
+    for i in draws["order"].tolist():
+        xj = jitters[i](xj)
+    x = torch.where(per_image(draws["jitter"]), xj, x)
+
+    w = torch.tensor(_GRAY_W_AS_GIVEN, dtype=x.dtype, device=x.device)
+    gray3 = torch.sum(x * w, dim=-1, keepdim=True) * torch.ones_like(x)
+    x = torch.where(per_image(draws["gray"]), gray3, x)
+
+    x = torch.where(per_image(draws["blur"]), gaussian_blur(x, 3, 2.0), x)
+
+    if with_sharpness:
+        c = x.shape[-1]
+        k = torch.tensor(_SHARP_KERNEL, dtype=x.dtype, device=x.device) / 13.0
+        degenerate = F.conv2d(x.permute(0, 3, 1, 2), k[None, None].expand(c, 1, 3, 3),
+                              padding=1, groups=c).permute(0, 2, 3, 1)
+        degenerate = torch.clamp(degenerate, 0.0, 1.0)
+        sharp = x + per_image(draws["sharp_factor"]) * (degenerate - x)
+        interior = torch.zeros(x.shape[1:3], dtype=torch.bool, device=x.device)
+        interior[1:-1, 1:-1] = True
+        sharp = torch.where(interior[None, :, :, None], sharp, x)
+        x = torch.where(per_image(draws["sharp"]), sharp, x)
+    return x
+
+
 def diga_photometric(x_norm: torch.Tensor, draws: dict[str, torch.Tensor], beta: float, *,
-                     with_sharpness: bool = True) -> torch.Tensor:
-    """beta·to_model(chain(to_unit(x))) + (1 - beta)·x, in f32
-    (reference warm_up.py:233; beta 0.4 warm-up, 0.3 self-training)."""
+                     variant: str = "diga", with_sharpness: bool = True) -> torch.Tensor:
+    """The photometric view blended at strength ``beta``, in f32 (reference
+    warm_up.py:233; beta 0.4 warm-up, 0.3 self-training): ``variant='diga'``
+    is beta·to_model(chain(to_unit(x))) + (1 - beta)·x with ``draw``'s
+    draws; ``variant='kornia'`` is beta·(2·kornia_chain(x) - 1) + (1 - beta)·x
+    with ``draw_kornia``'s."""
     x32 = x_norm.to(torch.float32)
+    if variant == "kornia":
+        aug = kornia_photometric_chain(x32, draws, with_sharpness=with_sharpness)
+        return beta * (2.0 * aug - 1.0) + (1.0 - beta) * x32
     unit = torch.clamp(to_unit(x32), 0.0, 1.0)
     aug = photometric_chain(unit, draws, with_sharpness=with_sharpness)
     return beta * to_model(aug) + (1.0 - beta) * x32

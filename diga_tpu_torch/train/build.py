@@ -131,10 +131,11 @@ TRAIN_STAGES = ("warmup", "dg", "selftrain")
 
 def make_step_config(cfg: ExperimentConfig) -> StepConfig:
     t = cfg.train
-    if t.seg_loss != "ce":
-        raise NotImplementedError(f"seg_loss {t.seg_loss!r} is not ported yet (OHEM, ROADMAP)")
-    if cfg.extra.get("photometric", "diga") != "diga":
-        raise NotImplementedError("the kornia photometric chain is not ported yet (ROADMAP)")
+    photometric = cfg.extra.get("photometric", "diga")
+    if t.seg_loss not in ("ce", "ohem"):
+        raise ValueError(f"seg_loss {t.seg_loss!r}: expected 'ce' or 'ohem'")
+    if photometric not in ("diga", "kornia"):
+        raise ValueError(f"--extra photometric={photometric!r}: expected 'diga' or 'kornia'")
     for key, where in _NOT_PORTED.items():
         if cfg.extra.get(key):
             raise NotImplementedError(f"--extra {key} is not ported yet ({where})")
@@ -147,6 +148,9 @@ def make_step_config(cfg: ExperimentConfig) -> StepConfig:
         beta=t.beta,
         lambda_seg=t.lambda_seg,
         lambda_distil=t.lambda_distil,
+        seg_loss=t.seg_loss,
+        photometric=photometric,
+        # the SYNTHIA warm-up jitters with p=0.7 (Synthia/...warm_up.py:108)
         p_jitter=cfg.extra.get("p_jitter", 0.5),
         # the DG chain drops RandomSharpness (train_DiGA_DG.py:114)
         with_sharpness=cfg.extra.get("with_sharpness", cfg.stage != "dg"),

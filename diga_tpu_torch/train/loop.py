@@ -32,8 +32,11 @@ from ..data import (
     RandomCrop,
     RandomHorizontallyFlip,
     RandomSizedAndCrop,
+    bdd_dataset,
     cityscapes_dataset,
     gta5_dataset,
+    mapillary_dataset,
+    synthia_dataset,
 )
 from ..data.loader import BatchLoader
 from ..eval.evaluator import TwoScaleEvaluator, iter_val
@@ -46,14 +49,17 @@ def build_dataset(spec: LoaderSpec, data_cfg: DataConfig, crop_hw, is_source: bo
     """One stream's dataset with the stage's geometric augmentation (the
     source random-resizes, the target crops, random-resized in
     self-training; reference warm_up.py:97-103, self_training.py:110-115).
-    A target stream with ``use_pseudo`` also reads the pseudo-label PNGs
-    under ``<target_root>/<pseudo_dir>``."""
+    Sources: GTA5 and SYNTHIA; targets: Cityscapes, BDD and Mapillary.  A
+    Cityscapes target stream with ``use_pseudo`` also reads the pseudo-label
+    PNGs under ``<target_root>/<pseudo_dir>``."""
     sized = data_cfg.source_sized_crop if is_source else data_cfg.target_sized_crop
     crop_cls = RandomSizedAndCrop if sized else RandomCrop
     kw = dict(resize_hw=tuple(spec.resize_hw),
               transform=Compose([RandomHorizontallyFlip(), crop_cls(list(crop_hw))]))
     if spec.kind == "gta5":
         return gta5_dataset(data_cfg.source_root, data_cfg.source_list, **kw)
+    if spec.kind == "synthia":
+        return synthia_dataset(data_cfg.source_root, data_cfg.source_list, **kw)
     if spec.kind == "cityscapes" and not is_source:
         if spec.use_pseudo and data_cfg.pseudo_dir is None:
             raise ValueError("a pseudo-label target stream needs --pseudo_dir")
@@ -61,10 +67,15 @@ def build_dataset(spec: LoaderSpec, data_cfg: DataConfig, crop_hw, is_source: bo
                                   data_cfg.target_lbl_list, split=spec.split,
                                   pseudo_dir=data_cfg.pseudo_dir if spec.use_pseudo else None,
                                   **kw)
-    raise NotImplementedError(
-        f"{'source' if is_source else 'target'} stream {spec.kind!r} is not ported yet "
-        "(SYNTHIA, BDD/Mapillary training and Cityscapes as the source: ROADMAP queue A "
-        "items 10 and 14)")
+    if spec.kind in ("bdd", "mapillary"):
+        make = bdd_dataset if spec.kind == "bdd" else mapillary_dataset
+        return make(data_cfg.target_root, data_cfg.target_img_list, data_cfg.target_lbl_list,
+                    **kw)
+    if spec.kind == "cityscapes":
+        raise NotImplementedError(
+            "Cityscapes as the source stream (semi-supervised) is not ported yet "
+            "(ROADMAP queue A item 14)")
+    raise ValueError(f"unknown dataset kind {spec.kind!r}")
 
 
 class MultiStreamLoader:

@@ -14,7 +14,8 @@ The DG and warm-up steps run, in the reference order:
      photometric view inside half the source classes;
   4. the teacher forward on [source; second view] in train mode
      (batch-statistic BN, dropout) under ``no_grad``, never eval mode;
-  5. the student forward and backward: CE on the source half plus
+  5. the student forward and backward: the segmentation loss (CE, or OHEM
+     for the SYNTHIA stages) on the source half plus
      ``lambda_distil`` x the symmetric distillation, both on logits
      upsampled to the crop (``ops.distill``: the CUDA kernels B1a/B1b on
      the card);
@@ -41,7 +42,7 @@ from ..ops import mixing
 from ..ops import photometric as P
 from ..ops import prototypes
 from ..ops.ema import ema_alpha, ema_update
-from ..ops.losses import cross_entropy2d
+from ..ops.losses import cross_entropy2d, ohem_cross_entropy
 from ..ops.resize import resize_bilinear
 from .optim import set_lr
 from .state import SegTrainState
@@ -58,6 +59,13 @@ class StepConfig:
     beta: float = 0.4                    # photometric blend strength
     lambda_seg: float = 1.0
     lambda_distil: float = 0.5
+    seg_loss: str = "ce"                 # 'ce' | 'ohem' (the SYNTHIA stages)
+    ohem_thresh: float = 0.7
+    ohem_min_kept: int = 100_000
+    # 'diga': the chain in unit space (the JAX package's documented
+    # deviation); 'kornia': the reference-faithful kornia-0.5.8 chain on the
+    # normalized tensor, incl. the trailing 2x-1 (``--parity``)
+    photometric: str = "diga"
     p_jitter: float = 0.5                # ColorJitter p (SYNTHIA warm-up: 0.7)
     # RandomSharpness in the photometric chain; the DG chain has it
     # commented out (train_DiGA_DG.py:114)
@@ -87,11 +95,20 @@ def _logits_up(model, x_nchw: torch.Tensor, crop_hw) -> torch.Tensor:
     return resize_bilinear(_nhwc(model(x_nchw)[2]), crop_hw)
 
 
+def _seg_loss_fn(cfg: StepConfig) -> Callable:
+    if cfg.seg_loss == "ohem":
+        return lambda logits, labels: ohem_cross_entropy(
+            logits, labels, thresh=cfg.ohem_thresh, min_kept=cfg.ohem_min_kept)
+    return cross_entropy2d
+
+
 def _photometric(cfg: StepConfig, generator: torch.Generator, img: torch.Tensor,
                  draws: dict | None) -> torch.Tensor:
     if draws is None:
-        draws = P.draw(generator, img.shape[0], p_jitter=cfg.p_jitter)
-    return P.diga_photometric(img, draws, cfg.beta, with_sharpness=cfg.with_sharpness)
+        draw = P.draw_kornia if cfg.photometric == "kornia" else P.draw
+        draws = draw(generator, img.shape[0], p_jitter=cfg.p_jitter)
+    return P.diga_photometric(img, draws, cfg.beta, variant=cfg.photometric,
+                              with_sharpness=cfg.with_sharpness)
 
 
 def _crdomix_view(cfg: StepConfig, state: SegTrainState, s_img, s_lbl, s_aug, selection, amp):
@@ -121,7 +138,7 @@ def _distill_and_update(cfg: StepConfig, schedule, state: SegTrainState, s_cat: 
         t_up = _logits_up(state.teacher, s_cat, cfg.crop_hw)
     with amp:
         s_up = _logits_up(state.student, s_cat, cfg.crop_hw)
-        ce = cross_entropy2d(s_up[:b], s_lbl)
+        ce = _seg_loss_fn(cfg)(s_up[:b], s_lbl)
         distil = D.distillation_loss(t_up, s_up, DISTIL_SCALE)
         total = cfg.lambda_seg * ce + cfg.lambda_distil * distil
     total.backward()
@@ -157,8 +174,9 @@ def build_warmup_step(cfg: StepConfig, schedule: Callable[[int], float]) -> Call
     """``step(state, batch, *, selection=None, photometric_draws=None) -> metrics``.
 
     ``batch`` as for ``build_dg_step``.  ``selection`` (B, C+1) and
-    ``photometric_draws`` replace the step's own draws (tests inject the
-    JAX package's).
+    ``photometric_draws`` (``P.draw``'s, or ``P.draw_kornia``'s when
+    ``cfg.photometric == 'kornia'``) replace the step's own draws (tests
+    inject the JAX package's).
     """
 
     def step(state: SegTrainState, batch: dict, *, selection: torch.Tensor | None = None,
@@ -195,7 +213,8 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
          half, both in EMA mode;
       8. the student on [source; mix], then on the DACS image, its BN
          statistics chained;
-      9. loss = lambda_seg x (CE + CE on the DACS image) + lambda_distil x
+      9. loss = lambda_seg x (the segmentation loss on the source + on the
+         DACS image) + lambda_distil x
          the distillation against the teacher's [source; mix] logits;
      10. the SGD step.
     The JAX package's opt-in ``fuse_forwards`` throughput mode is not
@@ -241,8 +260,9 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
         with amp:
             s_up = _logits_up(state.student, s_cat, cfg.crop_hw)
             cross_up = _logits_up(state.student, _nchw(cross_img), cfg.crop_hw)
-            ce = cross_entropy2d(s_up[:b], s_lbl)
-            ce_cross = cross_entropy2d(cross_up, cross_lbl)
+            seg_loss = _seg_loss_fn(cfg)
+            ce = seg_loss(s_up[:b], s_lbl)
+            ce_cross = seg_loss(cross_up, cross_lbl)
             distil = D.distillation_loss(st_up, s_up, DISTIL_SCALE)
             total = cfg.lambda_seg * (ce + ce_cross) + cfg.lambda_distil * distil
         total.backward()

@@ -1,6 +1,9 @@
 """JAX side of the self-training step parity, run in a fresh process.
 
-    python tests/_torch_port_selftrain_ref.py OUT_DIR
+    python tests/_torch_port_selftrain_ref.py OUT_DIR [VARIANT]
+
+VARIANT is a key of ``VARIANTS``: ``gta`` (the default: 19 classes, CE)
+or ``synthia`` (16 classes, OHEM on the source and the DACS image).
 
 Builds the jitted ``diga_tpu`` self-training step by the composed-parity
 recipe (tiny depth, f32, ``beta=0``, ``droprate=0``, frozen BN biases at
@@ -16,7 +19,9 @@ pytest process (tests/test_e2e_selftrain.py:86-88); a fresh process
 compiles it in a few GB, so the test runs this file as a subprocess.
 """
 
+import re
 import sys
+import types
 
 import numpy as np
 
@@ -30,15 +35,25 @@ N_STEPS = 5
 FEAT_DIM = 256
 TRANSLATOR = {"enc": dict(dim=8, n_downsample=2, n_res=1),
               "dec": dict(dim=32, n_upsample=2, n_res=1)}
+# each variant's class count, StepConfig fields and the initial bias of the
+# ASPP branches' GroupNorms (None: as initialized).  SYNTHIA: OHEM at the
+# presets' thresh 0.7 and min_kept 100 000; its GroupNorm biases at +4 keep
+# the head's ReLU inputs off their kink, as the frozen BN biases do in the
+# backbone (at 0, one ReLU input of the d24 branch sat within f32 rounding
+# of 0 and flipped between the packages at step 0)
+VARIANTS = {"gta": {"num_classes": K, "step": {}, "aspp_gn_bias": None},
+            "synthia": {"num_classes": 16, "step": {"seg_loss": "ohem"}, "aspp_gn_bias": 4.0}}
 
 
-def make_batch(i: int) -> dict:
+def make_batch(i: int, num_classes: int = K) -> dict:
     """Source and target images, source labels with an ignore band, and
     target pseudo-labels over a few classes with a 255 stripe."""
     rr = np.random.default_rng(300 + i)
-    s_lbl = rr.choice(rr.choice(K, size=7, replace=False), size=(B, *CROP)).astype(np.int32)
+    classes = rr.choice(num_classes, size=7, replace=False)
+    s_lbl = rr.choice(classes, size=(B, *CROP)).astype(np.int32)
     s_lbl[:, :4] = 255
-    t_pseudo = rr.choice(rr.choice(K, size=3, replace=False), size=(B, *CROP)).astype(np.int32)
+    classes = rr.choice(num_classes, size=3, replace=False)
+    t_pseudo = rr.choice(classes, size=(B, *CROP)).astype(np.int32)
     t_pseudo[:, :, 20:28] = 255
     return {"s_img": (rr.normal(size=(B, *CROP, 3)) * 0.5).astype(np.float32),
             "s_lbl": s_lbl,
@@ -50,7 +65,9 @@ def _flat(prefix: str, sd: dict) -> dict:
     return {f"{prefix}|{k}": np.asarray(v) for k, v in sd.items()}
 
 
-def main(out_dir: str) -> None:
+def main(out_dir: str, variant: str = "gta") -> None:
+    K, step_opts = VARIANTS[variant]["num_classes"], VARIANTS[variant]["step"]
+    aspp_gn_bias = VARIANTS[variant]["aspp_gn_bias"]
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -72,12 +89,15 @@ def main(out_dir: str) -> None:
     model = DeepLabV2(num_classes=K, layers=LAYERS, droprate=0.0, s2b=False)
     k = jax.random.PRNGKey(3)
     x = jnp.zeros((1, *CROP, 3), jnp.float32)
-    variables = model.init({"params": k, "dropout": k}, x, train=False)
+    # flax's eager inits take about 40 s on a CPU; jitted, a few seconds.
+    # create_seg_state's one use of its model is ``init``.
+    init = types.SimpleNamespace(init=jax.jit(model.init, static_argnames=("train",)))
+    variables = init.init({"params": k, "dropout": k}, x, train=False)
     opt = sgd_grouped(poly_schedule(LR, 1000), head_param_mask(variables["params"]),
                       momentum=0.9, weight_decay=5e-4)
     enc, dec = ImgEncoder(**TRANSLATOR["enc"]), ImgDecoder(**TRANSLATOR["dec"])
-    enc_p = enc.init(k, x)["params"]
-    dec_p = dec.init(k, enc.apply({"params": enc_p}, x))["params"]
+    enc_p = jax.jit(enc.init)(k, x)["params"]
+    dec_p = jax.jit(lambda key, p: dec.init(key, enc.apply({"params": p}, x)))(k, enc_p)["params"]
 
     def translator_apply(fz, img):
         return dec.apply({"params": fz["dec_s2t"]}, enc.apply({"params": fz["enc_s"]}, img))
@@ -87,21 +107,28 @@ def main(out_dir: str) -> None:
     # equidistant and the consensus degenerates
     cents = Centroids(vectors=jnp.asarray(rr.normal(size=(K, FEAT_DIM)).astype(np.float32) * 0.1),
                       counts=jnp.full((K,), 150.0, jnp.float32))
-    state = create_seg_state(model, opt, k, CROP, centroids=cents,
+    state = create_seg_state(init, opt, k, CROP, centroids=cents,
                              frozen={"enc_s": enc_p, "dec_s2t": dec_p})
     # frozen BN biases at +4 keep every backbone ReLU input off its kink
     # (tests/test_torch_port_train_step.py)
-    state = state.replace(params=jax.tree_util.tree_map_with_path(
-        lambda path, a: np.full_like(a, 4.0)
-        if "frozen_bn" in jax.tree_util.keystr(path) and jax.tree_util.keystr(path).endswith("['bias']")
-        else np.asarray(a), state.params))
+    def init_value(path, a):
+        name = jax.tree_util.keystr(path)
+        if "frozen_bn" in name and name.endswith("['bias']"):
+            return np.full_like(a, 4.0)
+        if aspp_gn_bias is not None and re.fullmatch(r"\['head'\]\['branch\d_gn'\]\['bias'\]",
+                                                     name):
+            return np.full_like(a, aspp_gn_bias)
+        return np.asarray(a)
+
+    state = state.replace(params=jax.tree_util.tree_map_with_path(init_value, state.params))
     noisy = lambda tree, s: jax.tree_util.tree_map(
         lambda a: np.asarray(a) + rr.normal(size=a.shape).astype(np.float32) * s, tree)
     state = state.replace(
         batch_stats=jax.tree_util.tree_map(np.abs, noisy(state.batch_stats, 0.01)),
         teacher_batch_stats=jax.tree_util.tree_map(np.abs, noisy(state.batch_stats, 0.01)),
         teacher_params=noisy(state.params, 0.01))
-    cfg = StepConfig(crop_hw=CROP, beta=0.0, lambda_distil=LAMBDA_DISTIL)
+    cfg = StepConfig(num_classes=K, crop_hw=CROP, beta=0.0, lambda_distil=LAMBDA_DISTIL,
+                     **step_opts)
     step = jax.jit(build_selftrain_step(model, translator_apply, opt, cfg))
 
     def snapshot(st) -> dict:
@@ -116,7 +143,7 @@ def main(out_dir: str) -> None:
     np.savez(f"{out_dir}/init.npz", **snapshot(state), **_flat("enc_s", sds["enc_s"]),
              **_flat("dec_s2t", sds["dec_s2t"]))
     for i in range(N_STEPS):
-        batch = make_batch(i)
+        batch = make_batch(i, K)
         _, _, _, k_mix1, k_mix2, _, _, _, _ = jax.random.split(state.rng, 9)
         s_lbl = jnp.asarray(batch["s_lbl"])
         selections = {"selection|crdomix": np.asarray(mixing.sample_half_classes(s_lbl, k_mix1, K)),
@@ -130,4 +157,4 @@ def main(out_dir: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(*sys.argv[1:])
