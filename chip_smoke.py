@@ -10,7 +10,8 @@ evaluation of DeepLabV2-R101 (``evaluate_val``), the GTA5->Cityscapes
 warm-up (``train_warm_up``), the self-training chain from the warm-up's
 weights (``pseudolabel_generator`` -> ``calc_centroids`` ->
 ``train_self_training``), the DG stage (``train_dg``), the
-SYNTHIA->Cityscapes chain at 16 classes and a ``--parity`` warm-up.
+SYNTHIA->Cityscapes chain at 16 classes, a ``--parity`` warm-up, the
+translator stage (``train_domain_translator``) and a resumed warm-up.
 Phases, any failure of which exits non-zero:
 
   1. device: require CUDA; print the card's name and power limit
@@ -56,7 +57,7 @@ Phases, any failure of which exits non-zero:
      step timed on one batch (distillation kernel vs plain, in turns):
      ms/step, source imgs/s, peak memory
   7. main paths, self-training chain and DG, at full width from the
-     warm-up's last-step weights (``weights_final``: 3 steps with no eval
+     warm-up's last-step state (``ckpt_final``: 3 steps with no eval
      write no best ``weights``), on two 1024x2048 Cityscapes train images:
      pseudolabel_generator (preset gta2city_warmup) writes P-mode PNGs into
      <target_root>/pseudo_train_warm_up; calc_centroids (one epoch) writes
@@ -76,6 +77,20 @@ Phases, any failure of which exits non-zero:
      images, scores with mean_iou_13); then train_warm_up --parity (preset
      gta2city_warmup, f32, the kornia chain, 2 steps).  Then the SYNTHIA
      warm-up step timed as in 6
+  8b. main paths, the translator stage and the resume, at full width:
+     train_domain_translator (preset gta2city_translator: encoders 64,
+     decoders 256 with subpixel up-blocks, 4 residual blocks, 3-scale
+     PatchGANs; source 1 + 1 GTA5 at 720x1280 and 1052x1914, target 1 + 1
+     Cityscapes at 512x1024 and 1024x2048, crop 512x896, bf16, 3 steps):
+     finite losses, the six roles in ``weights/``, ``ckpt_final/state.pth``
+     at step 3; train_warm_up --load_weight_dir <translator>/weights (1
+     step, the stage chain on the port's own weights); the translator step
+     fused and unfused timed on one batch (ms/step, source imgs/s, peak
+     memory; busy share under --profile); synthia2city_translator (2
+     steps); a translator with a seeded VGG19 ``--vgg_weights`` (2 steps,
+     the perceptual term with remat); train_warm_up --num_steps 2
+     --save_every 1, then --resume --num_steps 3: one more step, from step
+     2 to 3
   9. kernel timing: per-site GroupNorm and distillation device times
      (CUDA events around back-to-back calls queued behind a sleep kernel)
      against their byte bounds, plain versions and nearest library calls
@@ -91,22 +106,28 @@ evaluate_val (2 images) 0, 0, 24, 24; train_warm_up (3 steps) 3, 3, 18,
 images) 0, 0, 12, 12; train_self_training (3 steps) 3, 3, 36, 36;
 train_dg (3 steps) 3, 3, 18, 18; the SYNTHIA chain the same per CLI
 (calc_centroids twice: target and source); train_warm_up --parity (2
-steps) 2, 2, 12, 12.  On a train path every B1a launch must be at its
-site: bf16 (6, 512, 896, 19) for the GTA5 warm-up and self-training, (8,
-512, 896, 19) for DG, (8, 512, 896, 16) and (6, 512, 896, 16) for the
-SYNTHIA warm-up and self-training, f32 (6, 512, 896, 19) under --parity.
-A kernel's ``launches`` in the JSON line is its sum over these runs.
+steps) 2, 2, 12, 12; each train_domain_translator run 0, 0, 0, 0 (the
+translator stage reaches no TPU kernel: its InstanceNorm is plain
+reductions); the warm-up from the translator's weights (1 step) 1, 1, 6,
+6; the resume's two warm-ups (2 steps, then 1) 2, 2, 12, 12 and 1, 1, 6,
+6.  On a train path every B1a launch must be at its site: bf16 (6, 512,
+896, 19) for the GTA5 warm-ups and self-training, (8, 512, 896, 19) for
+DG, (8, 512, 896, 16) and (6, 512, 896, 16) for the SYNTHIA warm-up and
+self-training, f32 (6, 512, 896, 19) under --parity.  A kernel's
+``launches`` in the JSON line is its sum over these runs.
 
 ``--profile DIR`` also writes torch.profiler tables and traces of one
-two-scale eval and of one warm-up, self-training and DG step into DIR,
-with their busy shares.
+two-scale eval and of one warm-up, self-training, DG and translator step
+into DIR, with their busy shares.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -121,13 +142,14 @@ import torch.nn.functional as F
 from PIL import Image
 
 from diga_tpu_torch.cli import (calc_centroids, evaluate_val, pseudolabel_generator, train_dg,
-                                train_self_training, train_warm_up)
+                                train_domain_translator, train_self_training, train_warm_up)
 from diga_tpu_torch.configs.presets import get_preset
 from diga_tpu_torch.data import cityscapes_dataset, synthetic
 from diga_tpu_torch.eval.evaluator import two_scale_logits
 from diga_tpu_torch.models import resnet_deeplab
 from diga_tpu_torch.models.resnet_deeplab import DeepLabV2
 from diga_tpu_torch.models.translator import ImgDecoder, ImgEncoder
+from diga_tpu_torch.models.vgg import VGG19Features
 from diga_tpu_torch.ops import distill as D
 from diga_tpu_torch.ops import group_norm as G
 from diga_tpu_torch.ops import mixing, native
@@ -136,12 +158,13 @@ from diga_tpu_torch.ops.prototypes import Centroids
 from diga_tpu_torch.ops.losses import distillation_loss as plain_distillation_loss
 from diga_tpu_torch.ops.metrics import confusion_update
 from diga_tpu_torch.train.build import build_eval, build_experiment, wants_target
-from diga_tpu_torch.train.loop import make_train_iterator, to_device
+from diga_tpu_torch.train.loop import make_train_iterator, make_translator_iterator, to_device
 from diga_tpu_torch.train.optim import sgd_grouped
 from diga_tpu_torch.train.schedules import poly_schedule
 from diga_tpu_torch.train.state import create_seg_state
 from diga_tpu_torch.train.steps import (StepConfig, build_dg_step, build_selftrain_step,
                                         build_warmup_step)
+from diga_tpu_torch.train.steps_translator import ROLES, build_translator_step
 from diga_tpu_torch.utils.checkpoint import export_role_keyed
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
@@ -194,6 +217,8 @@ SELFTRAIN_PRESET = "gta2city_selftrain"
 DG_PRESET = "dg_gta5"
 SYNTHIA_PRESET = "synthia2city_warmup"
 SYNTHIA_SELFTRAIN_PRESET = "synthia2city_selftrain"
+TRANSLATOR_PRESET = "gta2city_translator"
+SYNTHIA_TRANSLATOR_PRESET = "synthia2city_translator"
 PSEUDO_DIR = "pseudo_train_warm_up"  # the self-training presets' pseudo_dir
 OUT_HW, DS_HW = (1024, 2048), (512, 1024)
 SYNTHIA_HW = (760, 1280)  # SYNTHIA-RAND-CITYSCAPES' own image size
@@ -202,7 +227,13 @@ SEED = 0
 TRAIN_STEPS = 3
 PARITY_STEPS = 2
 TRAIN_PATHS = ("train_warm_up", "train_self_training", "train_dg", "synthia train_warm_up",
-               "synthia train_self_training", "parity train_warm_up")
+               "synthia train_self_training", "parity train_warm_up",
+               "translated train_warm_up", "resume train_warm_up", "resumed train_warm_up")
+TRANSLATOR_STEPS = 3
+TRANSLATOR_SHORT_STEPS = 2  # the SYNTHIA and the VGG translator runs
+# the translator stage reaches no TPU kernel: each run must launch none
+TRANSLATOR_PATHS = ("train_domain_translator", "synthia train_domain_translator",
+                    "vgg train_domain_translator")
 DEVICE = torch.device("cuda")  # the main paths' device, passed to every CLI as --device
 TPU_KERNELS = {  # name: (id, source, the TPU kernel it replaces)
     "distill_loss": ("B1a", "diga_tpu_torch/csrc/distill.cu", "diga_tpu/ops/pallas_kernels.py:35"),
@@ -865,6 +896,30 @@ def step_ms(state, step, batch, n: int) -> float:
     return (time.perf_counter() - t0) / n * 1e3
 
 
+def profile_step(stage: str, state, step, batch, ms: float, profile_dir: str) -> dict:
+    """Device time of one step by op (torch.profiler) and its busy share of
+    the unprofiled ``ms``/step; table and trace into ``profile_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step_ms(state, step, batch, 1)
+    avgs = prof.key_averages()
+    table = avgs.table(sort_by="self_cuda_time_total", row_limit=60)
+    by_shape = prof.key_averages(group_by_input_shape=True).table(
+        sort_by="self_cuda_time_total", row_limit=40)
+    with open(os.path.join(profile_dir, f"{stage}_step_profile.txt"), "w") as f:
+        f.write(table + "\n" + by_shape)
+    prof.export_chrome_trace(os.path.join(profile_dir, f"{stage}_step_trace.json"))
+    dev_ms = device_time_us(avgs) / 1e3
+    print(f"profile: one {stage} step, device time {dev_ms:.2f} ms; busy share "
+          f"{dev_ms / ms:.3f} of {ms:.2f} ms/step; table and trace in {profile_dir}", flush=True)
+    print("\n".join(table.splitlines()[:40]))
+    print("\n".join(by_shape.splitlines()[:16]))
+    return {"device_ms_per_step": dev_ms, "busy_share": dev_ms / ms}
+
+
 def phase_train_timing(preset: str, data_paths: dict, card: str, profile_dir: str | None,
                        **build_kw) -> dict:
     """ms/step of ``preset``'s step on one batch on the card, in turns with
@@ -903,26 +958,7 @@ def phase_train_timing(preset: str, data_paths: dict, card: str, profile_dir: st
           f"{times['kernel']} distill=plain {p:.2f} {times['plain']} source imgs/s "
           f"{out[metric]:.2f} peak_mem_GiB={peak_gb:.2f} | card={card}", flush=True)
     if profile_dir:
-        from torch.profiler import ProfilerActivity, profile
-
-        os.makedirs(profile_dir, exist_ok=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     record_shapes=True) as prof:
-            step_ms(state, step, batch, 1)
-        avgs = prof.key_averages()
-        table = avgs.table(sort_by="self_cuda_time_total", row_limit=60)
-        by_shape = prof.key_averages(group_by_input_shape=True).table(
-            sort_by="self_cuda_time_total", row_limit=40)
-        with open(os.path.join(profile_dir, f"{cfg.stage}_step_profile.txt"), "w") as f:
-            f.write(table + "\n" + by_shape)
-        prof.export_chrome_trace(os.path.join(profile_dir, f"{cfg.stage}_step_trace.json"))
-        dev_ms = device_time_us(avgs) / 1e3
-        out["device_ms_per_step"] = dev_ms
-        out["busy_share"] = dev_ms / k
-        print(f"profile: one {cfg.stage} step, device time {dev_ms:.2f} ms; busy share "
-              f"{dev_ms / k:.3f} of {k:.2f} ms/step; table and trace in {profile_dir}", flush=True)
-        print("\n".join(table.splitlines()[:40]))
-        print("\n".join(by_shape.splitlines()[:16]))
+        out.update(profile_step(cfg.stage, state, step, batch, k, profile_dir))
     print(json.dumps({"metric": metric, "value": out[metric], "unit": "imgs/sec",
                       "ms_per_step": k, "peak_mem_GiB": peak_gb, "card": card}), flush=True)
     return out
@@ -964,10 +1000,8 @@ def kernel_counts(distill: int, gn: int) -> dict:
 
 def check_train_run(name: str, wd: str, result, keys, preset: str = PRESET,
                     steps: int = TRAIN_STEPS) -> None:
-    """Finite losses at step 0 (the trainer logs every 50) and at the last
-    step; with no eval there is no best ``weights``, and the last step's
-    student.pth in ``weights_final`` loads strictly into ``preset``'s eval
-    model."""
+    """Finite losses at the first logged step (the trainer logs every 50)
+    and at the last step, then ``check_ckpt_final``."""
     with open(os.path.join(wd, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     require([r["step"] for r in recs] == [0], f"{name} metrics.jsonl: {recs}")
@@ -975,20 +1009,30 @@ def check_train_run(name: str, wd: str, result, keys, preset: str = PRESET,
     for r in (recs[0], last):
         require(all(math.isfinite(r[k]) for k in keys), f"{name}: non-finite loss: {r}")
         require(0.0 <= r.get("consensus_kept", 0.0) <= 1.0, f"{name}: consensus_kept {r}")
+    check_ckpt_final(name, wd, preset, steps)
+    print(f"main path {name} metrics: " + json.dumps([{k: r[k] for k in ("step", *keys)}
+                                                      for r in (recs[0], last)]), flush=True)
+
+
+def check_ckpt_final(name: str, wd: str, preset: str, steps: int) -> None:
+    """With no eval there is no best ``weights``; the final state in
+    ``ckpt_final`` is at step ``steps`` and its student.pth loads strictly
+    into ``preset``'s eval model."""
     require(not os.path.exists(os.path.join(wd, "weights")),
             f"{name}: a run with no eval wrote {wd}/weights")
-    build_eval(get_preset(preset), os.path.join(wd, "weights_final"), DEVICE)
-    print(f"main path {name} metrics: " + json.dumps([{k: r[k] for k in ("step", *keys)}
-                                                      for r in (recs[0], last)])
-          + "; no weights/ (no eval), weights_final/student.pth loads strictly into the eval "
-          "model", flush=True)
+    final = os.path.join(wd, "ckpt_final")
+    st = torch.load(os.path.join(final, "state.pth"), map_location="cpu")
+    require(st["step"] == steps, f"{name}: ckpt_final at step {st['step']}, expected {steps}")
+    build_eval(get_preset(preset), final, DEVICE)
+    print(f"{name}: no weights/ (no eval), ckpt_final at step {steps}, its student.pth loads "
+          "strictly into the eval model", flush=True)
 
 
 def phase_chain_main_paths(work: str, data_paths: dict) -> tuple[dict, dict]:
     """The self-training chain at full width from the warm-up's last-step
     weights: pseudolabel_generator -> calc_centroids -> train_self_training,
     then train_dg; returns (launch counts by path, the chain's paths)."""
-    warm = os.path.join(work, "warmup", "weights_final")
+    warm = os.path.join(work, "warmup", "ckpt_final")
     city = data_paths["target_root"]
     # the chain's target set: the first N_IMAGES Cityscapes train images
     lists = {}
@@ -1038,6 +1082,11 @@ def phase_chain_main_paths(work: str, data_paths: dict) -> tuple[dict, dict]:
                     "data": {**data_paths, **lists}}
 
 
+def data_args(paths: dict) -> list:
+    return [a for k in ("source_root", "source_list", "target_root", "target_img_list",
+                        "target_lbl_list") for a in (f"--{k}", paths[k])]
+
+
 def check_pseudo_labels(pseudo: str, n: int, num_classes: int) -> None:
     files = sorted(os.listdir(pseudo))
     require(n == N_IMAGES and len(files) == N_IMAGES, f"pseudo-labels: {n}, {files}")
@@ -1079,7 +1128,7 @@ def phase_synthia_chain(work: str, val_paths: dict, gta_paths: dict) -> tuple[di
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     paths = {"source_root": syn_root, "source_list": syn_list, "target_root": city,
              "target_img_list": img_list, "target_lbl_list": lbl_list}
-    data = [a for k, v in paths.items() for a in (f"--{k}", v)]
+    data = data_args(paths)
     counts = {}
 
     wd = os.path.join(work, "synthia_warmup")
@@ -1089,7 +1138,7 @@ def phase_synthia_chain(work: str, val_paths: dict, gta_paths: dict) -> tuple[di
         kernel_counts(TRAIN_STEPS, 6 * TRAIN_STEPS), (torch.bfloat16, DISTILL_SYNTHIA_WARMUP_SHAPE))
     check_train_run("synthia train_warm_up", wd, result, ("loss", "loss_semseg", "loss_distil"),
                     preset=SYNTHIA_PRESET)
-    warm = os.path.join(wd, "weights_final")
+    warm = os.path.join(wd, "ckpt_final")
 
     pseudo = os.path.join(city, PSEUDO_DIR)
     n, counts["synthia pseudolabel_generator"] = run_path(
@@ -1123,7 +1172,7 @@ def phase_synthia_chain(work: str, val_paths: dict, gta_paths: dict) -> tuple[di
 
     results, counts["synthia evaluate_val"] = run_path(
         "synthia evaluate_val", evaluate_val.main,
-        ["--preset", SYNTHIA_SELFTRAIN_PRESET, "--weight_dir", os.path.join(wd, "weights_final"),
+        ["--preset", SYNTHIA_SELFTRAIN_PRESET, "--weight_dir", os.path.join(wd, "ckpt_final"),
          "--eval_limit", str(N_IMAGES), "--target_root", val_paths["root"],
          "--val_img_list", val_paths["val_img"], "--val_lbl_list", val_paths["val_lbl"]],
         kernel_counts(0, N_IMAGES * 2 * 6))
@@ -1135,8 +1184,7 @@ def phase_synthia_chain(work: str, val_paths: dict, gta_paths: dict) -> tuple[di
           flush=True)
 
     wd = os.path.join(work, "parity_warmup")
-    gta = [a for k in ("source_root", "source_list", "target_root", "target_img_list",
-                       "target_lbl_list") for a in (f"--{k}", gta_paths[k])]
+    gta = data_args(gta_paths)
     result, counts["parity train_warm_up"] = run_path(
         "parity train_warm_up", train_warm_up.main,
         ["--preset", PRESET, "--parity", "--work_dir", wd, "--num_steps", str(PARITY_STEPS),
@@ -1144,6 +1192,201 @@ def phase_synthia_chain(work: str, val_paths: dict, gta_paths: dict) -> tuple[di
     check_train_run("parity train_warm_up", wd, result, ("loss", "loss_semseg", "loss_distil"),
                     steps=PARITY_STEPS)
     return counts, paths
+
+
+TRANSLATOR_LOSSES = ("loss_g", "loss_d_s2t", "loss_d_t2s", "loss_adv", "loss_cyc", "loss_edge",
+                     "loss_self")
+
+
+def check_translator_run(name: str, wd: str, last: dict, steps: int) -> None:
+    """Finite losses at step 0 and at the last step; the six roles in
+    ``weights/``; ``ckpt_final`` with the six roles and ``state.pth`` at
+    ``steps`` with six Adam states."""
+    with open(os.path.join(wd, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    require([r["step"] for r in recs] == [0], f"{name} metrics.jsonl: {recs}")
+    for r in (recs[0], last):
+        require(set(TRANSLATOR_LOSSES) <= set(r) and all(math.isfinite(r[k])
+                                                         for k in TRANSLATOR_LOSSES),
+                f"{name}: losses {r}")
+    roles = sorted(f"{r}.pth" for r in ROLES)
+    require(sorted(os.listdir(os.path.join(wd, "weights"))) == roles,
+            f"{name}: weights/ holds {sorted(os.listdir(os.path.join(wd, 'weights')))}")
+    final = os.path.join(wd, "ckpt_final")
+    require(sorted(os.listdir(final)) == sorted(roles + ["state.pth"]),
+            f"{name}: ckpt_final holds {sorted(os.listdir(final))}")
+    st = torch.load(os.path.join(final, "state.pth"), map_location="cpu")
+    require(st["step"] == steps and sorted(st["optimizers"]) == sorted(ROLES),
+            f"{name}: ckpt_final at step {st['step']} with optimizers {sorted(st['optimizers'])}")
+    print(f"main path {name} losses: "
+          + json.dumps([{"step": i, **{k: r[k] for k in TRANSLATOR_LOSSES}}
+                        for i, r in ((0, recs[0]), (steps - 1, last))])
+          + f"; weights/ holds the six roles, ckpt_final at step {steps}", flush=True)
+
+
+def seeded_vgg19_file(path: str, seed: int) -> None:
+    """A torchvision-layout VGG19 ``features`` state_dict from a numpy seed
+    (no weights ship with the repository): He-scaled convs, small biases."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in VGG19Features().state_dict().items():
+        scale = math.sqrt(2.0 / math.prod(v.shape[1:])) if v.ndim == 4 else 0.01
+        sd[k] = torch.from_numpy((rng.standard_normal(v.shape) * scale).astype(np.float32))
+    torch.save(sd, path)
+
+
+def phase_translator(work: str, gta_paths: dict, synthia_paths: dict, card: str,
+                     profile_dir: str | None) -> dict:
+    """The translator stage at full width through its CLI: gta2city_translator
+    (3 steps), the warm-up from its weights (1 step), the step timed fused
+    and unfused, synthia2city_translator (2 steps) and a run with a seeded
+    VGG19 (2 steps).  Returns the launch counts by path."""
+    counts = {}
+    gta = data_args(gta_paths)
+    wd = os.path.join(work, "translator")
+    last, counts["train_domain_translator"] = run_path(
+        "train_domain_translator", train_domain_translator.main,
+        ["--preset", TRANSLATOR_PRESET, "--work_dir", wd, "--num_steps", str(TRANSLATOR_STEPS),
+         *gta], kernel_counts(0, 0))
+    check_translator_run("train_domain_translator", wd, last, TRANSLATOR_STEPS)
+
+    weights = os.path.join(wd, "weights")
+    wu = os.path.join(work, "translated_warmup")
+    result, counts["translated train_warm_up"] = run_path(
+        "translated train_warm_up", train_warm_up.main,
+        ["--preset", PRESET, "--work_dir", wu, "--num_steps", "1", "--load_weight_dir", weights,
+         *gta], kernel_counts(1, 6), (torch.bfloat16, DISTILL_SHAPE))
+    check_train_run("translated train_warm_up", wu, result, ("loss", "loss_semseg", "loss_distil"),
+                    steps=1)
+    for role in ("enc_s", "dec_s2t"):
+        a, b = (torch.load(os.path.join(d, f"{role}.pth"), map_location="cpu")
+                for d in (weights, os.path.join(wu, "ckpt_final")))
+        require(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+                f"the warm-up's frozen {role} is not the translator's")
+    print("translated train_warm_up: its frozen enc_s/dec_s2t are the translator's weights",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_translator_timing(gta_paths, card, profile_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    wd = os.path.join(work, "synthia_translator")
+    last, counts["synthia train_domain_translator"] = run_path(
+        "synthia train_domain_translator", train_domain_translator.main,
+        ["--preset", SYNTHIA_TRANSLATOR_PRESET, "--work_dir", wd, "--num_steps",
+         str(TRANSLATOR_SHORT_STEPS), *data_args(synthia_paths)], kernel_counts(0, 0))
+    check_translator_run("synthia train_domain_translator", wd, last, TRANSLATOR_SHORT_STEPS)
+
+    vgg = os.path.join(work, "vgg19_seeded.pth")
+    seeded_vgg19_file(vgg, SEED + 9)
+    wd = os.path.join(work, "vgg_translator")
+    last, counts["vgg train_domain_translator"] = run_path(
+        "vgg train_domain_translator", train_domain_translator.main,
+        ["--preset", TRANSLATOR_PRESET, "--work_dir", wd, "--num_steps",
+         str(TRANSLATOR_SHORT_STEPS), "--vgg_weights", vgg, *gta], kernel_counts(0, 0))
+    check_translator_run("vgg train_domain_translator", wd, last, TRANSLATOR_SHORT_STEPS)
+    return counts
+
+
+def phase_translator_timing(data_paths: dict, card: str, profile_dir: str | None) -> dict:
+    """ms/step of the translator step on one batch on the card, fused and
+    unfused in turns (fused, unfused, unfused, fused); source imgs/s and
+    peak memory of each; a profile of the fused step under --profile."""
+    base = get_preset(TRANSLATOR_PRESET)
+    cfg = dataclasses.replace(base, data=dataclasses.replace(base.data, **data_paths))
+    state, fused = train_domain_translator.build_translator_experiment(cfg, DEVICE)
+    tcfg = train_domain_translator.translator_config(cfg, with_vgg=False)
+    steps = {"fused": fused,
+             "unfused": build_translator_step(dataclasses.replace(tcfg, fuse=False),
+                                              poly_schedule(cfg.train.learning_rate,
+                                                            cfg.train.num_steps))}
+    it, loaders = make_translator_iterator(cfg)
+    try:
+        batch = to_device(next(it), DEVICE)
+    finally:
+        for ld in loaders:
+            ld.stop()
+    n_src, n_tgt = batch["s_img"].shape[0], batch["t_img"].shape[0]
+    for step in steps.values():
+        step_ms(state, step, batch, 2)  # cuDNN autotuning, allocator
+    times = {form: [] for form in steps}
+    peaks = {form: 0.0 for form in steps}
+    for form in ("fused", "unfused", "unfused", "fused"):
+        torch.cuda.reset_peak_memory_stats()
+        times[form].append(step_ms(state, steps[form], batch, 3))
+        peaks[form] = max(peaks[form], torch.cuda.max_memory_allocated() / 2**30)
+    out = {}
+    for form in steps:
+        ms = float(np.mean(times[form]))
+        out[form] = {"ms_per_step": ms, "peak_mem_GiB": peaks[form],
+                     "imgs_per_sec": n_src / (ms / 1e3)}
+        print(f"train translator step ({form}) enc 64 / dec 256 subpixel / 3-scale PatchGAN "
+              f"{cfg.train.compute_dtype} source {n_src} + target {n_tgt} imgs crop "
+              f"{tuple(batch['s_img'].shape[1:3])}: "
+              f"ms/step {ms:.2f} {times[form]} source imgs/s {out[form]['imgs_per_sec']:.2f} "
+              f"peak_mem_GiB={peaks[form]:.2f} | card={card}", flush=True)
+    if profile_dir:
+        out["fused"].update(profile_step("translator", state, steps["fused"], batch,
+                                         out["fused"]["ms_per_step"], profile_dir))
+    metric = f"{TRANSLATOR_PRESET}_train_imgs_per_sec_per_chip"
+    print(json.dumps({"metric": metric, "value": out["fused"]["imgs_per_sec"], "unit": "imgs/sec",
+                      "ms_per_step": out["fused"]["ms_per_step"],
+                      "ms_per_step_unfused": out["unfused"]["ms_per_step"],
+                      "peak_mem_GiB": out["fused"]["peak_mem_GiB"],
+                      "peak_mem_GiB_unfused": out["unfused"]["peak_mem_GiB"], "card": card}),
+          flush=True)
+    return out
+
+
+def phase_resume(work: str, gta_paths: dict) -> dict:
+    """train_warm_up for 2 steps with --save_every 1, then --resume to 3
+    steps: exactly one more step, from ckpt_final at step 2 to step 3.
+    Returns the launch counts by path."""
+    counts = {}
+    wd = os.path.join(work, "resume_warmup")
+    argv = ["--preset", PRESET, "--work_dir", wd, *data_args(gta_paths)]
+    keys = ("loss", "loss_semseg", "loss_distil")
+    result, counts["resume train_warm_up"] = run_path(
+        "resume train_warm_up", train_warm_up.main,
+        [*argv, "--num_steps", "2", "--save_every", "1"], kernel_counts(2, 12),
+        (torch.bfloat16, DISTILL_SHAPE))
+    check_train_run("resume train_warm_up", wd, result, keys, steps=2)
+    metrics = os.path.join(wd, "metrics.jsonl")
+    with open(metrics) as f:
+        logged = f.read()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(Tee(sys.stdout, out)):
+        result, counts["resumed train_warm_up"] = run_path(
+            "resumed train_warm_up", train_warm_up.main, [*argv, "--resume", "--num_steps", "3"],
+            kernel_counts(1, 6), (torch.bfloat16, DISTILL_SHAPE))
+    said = f"resumed from {os.path.join(wd, 'ckpt_final')} at step 2"
+    require(said in out.getvalue(), f"resumed train_warm_up never said '{said}'")
+    with open(metrics) as f:  # step 2 is not a logged step (every 50)
+        require(f.read() == logged, "resumed train_warm_up logged a step to metrics.jsonl")
+    require(all(math.isfinite(result.last_metrics[k]) for k in keys),
+            f"resumed train_warm_up: non-finite loss: {result.last_metrics}")
+    check_ckpt_final("resumed train_warm_up", wd, PRESET, 3)
+    print("resume: train_warm_up resumed from ckpt_final at step 2 and took one step, to 3: "
+          + json.dumps({k: result.last_metrics[k] for k in keys}), flush=True)
+    return counts
+
+
+class Tee(io.TextIOBase):
+    """A text stream that writes to each of ``streams``."""
+
+    def __init__(self, *streams):
+        super().__init__()
+        self.streams = streams
+
+    def write(self, s: str) -> int:
+        for st in self.streams:
+            st.write(s)
+        return len(s)
+
+    def flush(self) -> None:
+        for st in self.streams:
+            st.flush()
 
 
 def phase_pseudolabel_timing(warm: str, data: dict, card: str) -> float:
@@ -1217,7 +1460,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=str, default=None,
                     help="directory for torch.profiler tables and traces of one eval and "
-                         "one warm-up, self-training and DG step")
+                         "one warm-up, self-training, DG and translator step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs on the card",
@@ -1279,11 +1522,20 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_train_timing(SYNTHIA_PRESET, synthia_paths, card, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 8b. main paths: the translator stage and the resume
+        counts.update(phase_translator(work, data_paths, synthia_paths, card, args.profile))
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts.update(phase_resume(work, data_paths))
     gc.collect()
     torch.cuda.empty_cache()
     # 9. kernel timing and the record lines
     per_kernel = {**phase_gn_timing(card), **phase_distill_timing(card)}
     for path, c in counts.items():
+        if path in TRANSLATOR_PATHS:  # no TPU kernel on the translator stage (run_path holds 0)
+            continue
         used = [k for k, (_, src, _) in TPU_KERNELS.items()
                 if path in TRAIN_PATHS or src.endswith("group_norm.cu")]
         require(all(c[k] > 0 for k in used), f"a kernel of the {path} path never launched: {c}")

@@ -1,11 +1,18 @@
 """Segmentation trainer CLI: the warm-up, DG and self-training stages.
 
 Counterpart of ``diga_tpu/cli/train_seg.py`` (:50-119) on one device, with
-``--device`` (default ``cuda``).  Refused, with a message, until their
-slices land: ``--resume`` (full-state checkpoints), ``--pretrained_backbone``
-(the Caffe ResNet-101 init is not in the repository and nothing is
-downloaded), the multi-device flags, the translator stage, and the step
-options that are not ported (``--extra fuse_forwards``, the semiseg knobs).
+``--device`` (default ``cuda``).  Full-state checkpoints as the JAX
+trainer writes them (``utils/checkpoint.py``): ``--save_every`` N saves
+the state to ``<work_dir>/ckpt_final`` every N steps in the background,
+each new best mIoU writes ``<work_dir>/weights`` and ``<work_dir>/ckpt_best``,
+the end writes ``<work_dir>/ckpt_final``, and ``--resume`` continues from
+``<work_dir>/ckpt_final`` where one exists.  ``--pretrained_backbone PATH``
+lays a reference ResNet-101 ``.pth`` (the Caffe init, or a
+``state_dict``-wrapped checkpoint) over the backbone.  Refused, with a
+message: ``--pretrained_backbone auto`` (it downloads; the port fetches
+nothing), the multi-device flags, the translator stage (its CLI is
+``train_domain_translator``), and the step options that are not ported
+(``--extra fuse_forwards``, the semiseg knobs).
 
 Usage:
   python -m diga_tpu_torch.cli.train_warm_up --preset gta2city_warmup \\
@@ -16,14 +23,18 @@ Usage:
       --centroid_path ./work_dir/centroids/feat_centroids.npy ...
   python -m diga_tpu_torch.cli.train_warm_up --preset synthia2city_warmup \\
       --source_root ./data/SYNTHIA --target_root ./data/Cityscapes ...
-  (``--parity`` on any of them: f32 and the kornia photometric chain)
+  (``--parity`` on any of them: f32 and the kornia photometric chain;
+  ``--resume`` continues a run in the same ``--work_dir``)
 """
 
 from __future__ import annotations
 
+import os
+
 from .. import resolve_device
 from ..train.build import TRAIN_STAGES, build_experiment, make_step_config
 from ..train.loop import run_training
+from ..utils.checkpoint import restore_train_state, save_train_state
 from .common import base_parser, get_config, refuse_multi_device
 
 
@@ -35,41 +46,51 @@ def main(argv=None, force_stage: str | None = None):
                    help="initial class centroids of the self-training stage (.npy or a "
                         "torch-saved tensor, e.g. calc_centroids' output)")
     p.add_argument("--pretrained_backbone", type=str, default=None,
-                   help="not supported yet: the Caffe ResNet-101 init (ROADMAP queue A item 11)")
+                   help="backbone init .pth: the Caffe ResNet-101 (raw ResNetMulti keys), or "
+                        "a SegModel-layout or state_dict-wrapped checkpoint; 'auto' (a "
+                        "download) is refused")
+    p.add_argument("--save_every", type=int, default=2000,
+                   help="periodic full-state checkpoint to <work_dir>/ckpt_final (0 = off)")
     p.add_argument("--resume", action="store_true",
-                   help="not supported yet: full-state resume (ROADMAP queue A item 11)")
+                   help="restore the full train state (weights, momentum, step, centroids, "
+                        "generators) from <work_dir>/ckpt_final if present")
     args = p.parse_args(argv)
     refuse_multi_device(p, args)
-    if args.resume:
-        p.error("--resume is not supported by the port yet (full-state checkpoints, "
-                "ROADMAP queue A item 11)")
-    if args.pretrained_backbone is not None:
-        p.error("--pretrained_backbone is not supported by the port yet: the Caffe "
-                "ResNet-101 init is not in the repository and the port downloads nothing "
-                "(ROADMAP queue A item 11)")
+    if args.pretrained_backbone == "auto":
+        p.error("--pretrained_backbone auto downloads the Caffe ResNet-101 init, which the port "
+                "does not do: fetch the file elsewhere and pass its path")
     cfg = get_config(args)
     if force_stage is not None and cfg.stage != force_stage:
         p.error(f"preset {cfg.name} is stage {cfg.stage!r}, expected {force_stage!r}")
     if cfg.stage not in TRAIN_STAGES:
-        p.error(f"stage {cfg.stage!r} is not ported yet; the port trains the stages "
-                f"{TRAIN_STAGES} (translator training is ROADMAP queue A item 13)")
+        p.error(f"stage {cfg.stage!r}: this CLI trains the stages {TRAIN_STAGES}; the "
+                "translator stage is python -m diga_tpu_torch.cli.train_domain_translator")
     try:
         make_step_config(cfg)
     except (NotImplementedError, ValueError) as e:
         p.error(str(e))
     device = resolve_device(args.device)
     state, step, eval_apply = build_experiment(cfg, device, args.load_weight_dir,
-                                               args.centroid_path)
+                                               args.centroid_path, args.pretrained_backbone)
+    ckpt_final = os.path.join(args.work_dir, "ckpt_final")
+    if args.resume and os.path.exists(ckpt_final):
+        restore_train_state(ckpt_final, state)
+        print(f"resumed from {ckpt_final} at step {state.step}", flush=True)
+
+    def on_best(state, i, miou):
+        save_train_state(os.path.join(args.work_dir, "ckpt_best"), state)
+        print(f"saved best checkpoint at step {i} (mIoU {miou:.4f})", flush=True)
+
     result = run_training(cfg, state, step, eval_apply, work_dir=args.work_dir, device=device,
-                          num_steps=args.num_steps, eval_limit=args.eval_limit)
+                          num_steps=args.num_steps, eval_limit=args.eval_limit, on_best=on_best,
+                          save_every=args.save_every, save_path=ckpt_final)
+    save_train_state(ckpt_final, state)
     if result.best_miou > 0:
-        where = (f"best weights in {args.work_dir}/weights, the last step's in "
-                 f"{args.work_dir}/weights_final")
+        where = f"best weights in {args.work_dir}/weights and {args.work_dir}/ckpt_best"
     else:  # as the JAX trainer: no eval scored above 0, so no <work_dir>/weights
-        where = (f"no best weights (no eval above mIoU 0); the last step's in "
-                 f"{args.work_dir}/weights_final")
-    print(f"done: best mIoU {result.best_miou:.4f} @ step {result.best_step}; {where}",
-          flush=True)
+        where = "no best weights (no eval above mIoU 0)"
+    print(f"done: best mIoU {result.best_miou:.4f} @ step {result.best_step}; {where}; the "
+          f"final state (step {state.step}) in {ckpt_final}", flush=True)
     return result
 
 

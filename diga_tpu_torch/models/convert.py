@@ -16,10 +16,12 @@ Layout rules:
   GN     scale/bias -> weight/bias
 
 ``translator_state_dict_from_jax`` is the port's own copy of
-``diga_tpu/models/convert_translator.py::encoder_to_torch`` and
-``decoder_to_torch`` (:72-110): the JAX translator's parameters become
-the reference ``enc_s``/``dec_s2t`` state_dicts, which the port's
-``ImgEncoder``/``ImgDecoder`` load with ``strict=True``.
+``diga_tpu/models/convert_translator.py``'s ``encoder_to_torch``,
+``decoder_to_torch`` and ``discriminator_to_torch`` (:72-126): the JAX
+translator's parameters become the six reference role state_dicts, which
+the port's ``ImgEncoder``/``ImgDecoder``/``Discriminator`` load with
+``strict=True``.  ``pretrained_backbone_state_dict`` lays a reference
+ResNet-101 ``.pth`` over a fresh DeepLabV2 (``--pretrained_backbone``).
 """
 
 from __future__ import annotations
@@ -92,26 +94,92 @@ def _put_res_blocks(sd: dict, key: str, params: dict, n_res: int) -> None:
             _put_conv_block(sd, f"{key}.model.{r}.model.{j}", params[f"res{r}"][f"conv{j}"])
 
 
-def translator_state_dict_from_jax(enc_params: dict, dec_params: dict) -> dict[str, dict]:
-    """{"enc_s": state_dict, "dec_s2t": state_dict} from the JAX ImgEncoder
-    and ImgDecoder parameter trees (nested dicts of arrays)."""
-    n_down = sum(1 for k in enc_params if k.startswith("down"))
-    n_res_e = sum(1 for k in enc_params if k.startswith("res"))
-    enc: dict[str, torch.Tensor] = {}
-    _put_conv_block(enc, "model.0", enc_params["stem"])
+def _put_encoder(params: dict) -> dict[str, torch.Tensor]:
+    n_down = sum(1 for k in params if k.startswith("down"))
+    sd: dict[str, torch.Tensor] = {}
+    _put_conv_block(sd, "model.0", params["stem"])
     for i in range(n_down):
-        _put_conv_block(enc, f"model.{1 + i}", enc_params[f"down{i}"])
-    _put_res_blocks(enc, f"model.{1 + n_down}", enc_params, n_res_e)
+        _put_conv_block(sd, f"model.{1 + i}", params[f"down{i}"])
+    _put_res_blocks(sd, f"model.{1 + n_down}", params, sum(1 for k in params if k.startswith("res")))
+    return sd
 
-    n_up = sum(1 for k in dec_params if k.startswith("up"))
-    n_res_d = sum(1 for k in dec_params if k.startswith("res"))
-    dec: dict[str, torch.Tensor] = {}
-    _put_res_blocks(dec, "model.0", dec_params, n_res_d)
-    # layout: [ResBlocks, (Upsample, Conv2dBlock) x n_up, Conv2dBlock]
+
+def _put_decoder(params: dict) -> dict[str, torch.Tensor]:
+    n_up = sum(1 for k in params if k.startswith("up"))
+    sd: dict[str, torch.Tensor] = {}
+    _put_res_blocks(sd, "model.0", params, sum(1 for k in params if k.startswith("res")))
+    # layout: [ResBlocks, (upsample, up-conv) x n_up, out conv]
     for i in range(n_up):
-        _put_conv_block(dec, f"model.{2 + 2 * i}", dec_params[f"up{i}"])
-    _put_conv_block(dec, f"model.{1 + 2 * n_up}", dec_params["out"])
-    return {"enc_s": enc, "dec_s2t": dec}
+        _put_conv_block(sd, f"model.{2 + 2 * i}", params[f"up{i}"])
+    _put_conv_block(sd, f"model.{1 + 2 * n_up}", params["out"])
+    return sd
+
+
+def _put_discriminator(params: dict) -> dict[str, torch.Tensor]:
+    n_scales = sum(1 for k in params if k.endswith("_head"))
+    n_layer = sum(1 for k in params if k.startswith("scale0_conv"))
+    sd: dict[str, torch.Tensor] = {}
+    for s in range(n_scales):
+        for j in range(n_layer):
+            _put_conv_block(sd, f"cnns.{s}.{j}", params[f"scale{s}_conv{j}"])
+        head = params[f"scale{s}_head"]
+        sd[f"cnns.{s}.{n_layer}.weight"] = _tensor(np.asarray(head["kernel"]).transpose(3, 2, 0, 1))
+        sd[f"cnns.{s}.{n_layer}.bias"] = _tensor(head["bias"])
+    return sd
+
+
+_TRANSLATOR_LAYOUTS = {"enc": _put_encoder, "dec": _put_decoder, "dis": _put_discriminator}
+
+
+def translator_state_dict_from_jax(params: dict[str, dict]) -> dict[str, dict]:
+    """{role: state_dict} from the JAX translator's parameter trees by role
+    (``enc_s``/``enc_t``: ImgEncoder, ``dec_s2t``/``dec_t2s``: ImgDecoder,
+    ``dis_s2t``/``dis_t2s``: Discriminator; nested dicts of arrays)."""
+    return {role: _TRANSLATOR_LAYOUTS[role.split("_")[0]](p) for role, p in params.items()}
+
+
+def pretrained_backbone_state_dict(model: torch.nn.Module,
+                                   sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """``model``'s state_dict with a reference ResNet-101 ``.pth`` laid over it.
+
+    The port's counterpart of ``diga_tpu/models/convert.py``'s
+    ``segmodel_from_torch`` + ``merge_pretrained_backbone`` (:66-175), the
+    reference's DeeplabMulti load rule (seg_model_noaux.py:328-347).  Both
+    namings are read: the raw ``ResNetMulti`` (``conv1``, ``bn1``,
+    ``layer1``-``layer4``, head ``layer5``; the Caffe init) and the
+    ``SegModel`` wrapper's (``layer0.0``, ``layer0.1``, head ``final``).
+    Every backbone entry of ``model`` must be in ``sd`` (a model shallower
+    than the file takes its first blocks, as the JAX converter walks only
+    the model's depth).  The head is laid over only when ``sd`` holds the
+    ASPP head of this model's layout and class count; otherwise it keeps its
+    fresh init (the Caffe file's head is another module).
+    """
+    wrapper = any(k.startswith("layer0.") for k in sd)
+    head = "final." if wrapper else "layer5."
+    rename = {} if wrapper else {"conv1.": "layer0.0.", "bn1.": "layer0.1."}
+    src: dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        for old, new in rename.items():
+            if k.startswith(old):
+                k = new + k[len(old):]
+        if k.startswith(head):
+            k = "final." + k[len(head):]
+        src[k] = torch.as_tensor(v)
+    own = {k: v for k, v in model.state_dict().items() if not k.endswith("num_batches_tracked")}
+    out = dict(model.state_dict())
+    backbone = [k for k in own if not k.startswith("final.")]
+    missing = [k for k in backbone if k not in src]
+    if missing:
+        raise KeyError(f"the backbone file lacks {len(missing)} entries of the model, e.g. "
+                       f"{missing[:3]}")
+    head_keys = [k for k in own if k.startswith("final.")]
+    take_head = all(k in src and src[k].shape == own[k].shape for k in head_keys)
+    for k in backbone + (head_keys if take_head else []):
+        if src[k].shape != own[k].shape:
+            raise ValueError(f"{k}: {tuple(src[k].shape)} in the file, {tuple(own[k].shape)} "
+                             "in the model")
+        out[k] = src[k].to(own[k].dtype)
+    return out
 
 
 def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:

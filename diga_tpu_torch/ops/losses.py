@@ -10,11 +10,17 @@ semantics:
   * ``distillation_loss`` — util/loss.py:125-143, written with autograd
     through PyTorch ops.  The train step runs the same function as
     ``ops.distill.distillation_loss``, whose backward is a CUDA kernel.
+
+The translator stage's losses (``diga_tpu/ops/losses.py:108-166``) take
+NCHW images, the translator's layout: ``l1_loss``, the multi-scale LSGAN
+``lsgan_d_loss``/``lsgan_g_loss``, and ``seg_edge_loss`` over the 5x5
+``laplacian2d``.  All compute in f32.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 IGNORE = 255
 
@@ -66,3 +72,46 @@ def distillation_loss(teacher_logits: torch.Tensor, student_logits: torch.Tensor
     t0 = torch.mean(torch.sum(-q[:b] * logp[b:], dim=-1))
     t1 = torch.mean(torch.sum(-q[b:] * logp[:b], dim=-1)) * scale
     return t0 + t1
+
+
+def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(a.to(torch.float32) - b.to(torch.float32)))
+
+
+def lsgan_d_loss(real_scores: list[torch.Tensor], fake_scores: list[torch.Tensor]) -> torch.Tensor:
+    """LSGAN discriminator loss summed over the scales: MSE to 1 on the
+    real patch scores, to 0 on the fake (train_domain_translator.py:262-282)."""
+    loss = 0.0
+    for r, f in zip(real_scores, fake_scores):
+        loss = loss + torch.mean((r.to(torch.float32) - 1.0) ** 2)
+        loss = loss + torch.mean(f.to(torch.float32) ** 2)
+    return loss
+
+
+def lsgan_g_loss(fake_scores: list[torch.Tensor]) -> torch.Tensor:
+    """LSGAN generator loss: MSE to 1 on the fake patch scores."""
+    loss = 0.0
+    for f in fake_scores:
+        loss = loss + torch.mean((f.to(torch.float32) - 1.0) ** 2)
+    return loss
+
+
+def laplacian2d(x: torch.Tensor, ksize: int = 5) -> torch.Tensor:
+    """kornia's laplacian as ``seg_edge_loss`` uses it (util/loss.py:217,222):
+    a per-channel (depthwise) ``ksize``² kernel of ones with centre
+    1 − ksize², over a reflect-padded NCHW ``x``."""
+    c = x.shape[1]
+    k = torch.ones((ksize, ksize), dtype=x.dtype, device=x.device)
+    k[ksize // 2, ksize // 2] = 1.0 - ksize * ksize
+    pad = ksize // 2
+    xp = F.pad(x, (pad, pad, pad, pad), mode="reflect")
+    with torch.autocast(x.device.type, enabled=False):  # in x's dtype, as in JAX
+        return F.conv2d(xp, k.expand(c, 1, ksize, ksize), groups=c)
+
+
+def seg_edge_loss(rgb_out: torch.Tensor, rgb_in: torch.Tensor, segm: torch.Tensor) -> torch.Tensor:
+    """L1 between the input and translated images on the semantic edges of
+    ``segm`` (B, H, W) (util/loss.py:206-229); NCHW images."""
+    seg = segm.to(torch.float32)[:, None]
+    edges = (torch.abs(laplacian2d(seg)) > 0.1).to(torch.float32).expand_as(rgb_in)
+    return l1_loss(rgb_in * edges, rgb_out * edges)

@@ -4,9 +4,10 @@ Counterpart of ``diga_tpu/train/build.py``: ``make_model`` (:31-58),
 ``make_schedule``/``make_step_config``/``wants_target`` (:61-108), the
 translator helpers (:111-140), ``build_experiment`` (:143-279) for the
 warm-up, DG and self-training stages, and ``export_state_role_keyed``
-(:289-313); previous-stage weights come from role-keyed ``.pth`` files and
-the self-training centroids from ``calc_centroids``' output (reference
-stage chaining).  ``build_eval`` is
+(:289-313); previous-stage weights come from role-keyed ``.pth`` files,
+a reference ResNet-101 ``.pth`` initialises the backbone
+(``--pretrained_backbone``, :202-218), and the self-training centroids
+come from ``calc_centroids``' output (reference stage chaining).  ``build_eval`` is
 the frozen eval model of ``evaluate_val``.
 
 Parameters are f32; the compute dtype is applied by ``torch.autocast``
@@ -25,13 +26,14 @@ import torch
 import torch.nn as nn
 
 from ..configs.presets import ExperimentConfig
+from ..models.convert import load_torch_state_dict, pretrained_backbone_state_dict
 from ..models.resnet_deeplab import DeepLabV2
 from ..models.translator import ImgDecoder, ImgEncoder
 from ..ops.prototypes import Centroids
 from ..utils.checkpoint import export_role_keyed, load_role_keyed
 from .optim import sgd_grouped
 from .schedules import poly_schedule, poly_warmup_schedule
-from .state import SegTrainState, create_seg_state
+from .state import SegTrainState, create_seg_state, reference_state_dict
 from .steps import StepConfig, build_dg_step, build_selftrain_step, build_warmup_step
 
 
@@ -185,8 +187,11 @@ def load_centroids(cfg: ExperimentConfig, centroid_path: str | None) -> Centroid
     return Centroids(vectors=vectors.to(torch.float32), counts=torch.full((k,), 100.0))
 
 
-def make_translator_modules() -> tuple[ImgEncoder, ImgDecoder]:
-    return ImgEncoder(), ImgDecoder()
+def make_translator_modules(cfg: ExperimentConfig) -> tuple[ImgEncoder, ImgDecoder]:
+    """The frozen translator's modules: the decoder's up-blocks in the
+    subpixel form unless ``--extra subpixel_up=false``, as the JAX package
+    builds them (``diga_tpu/train/build.py:111-118``); the same weights."""
+    return ImgEncoder(), ImgDecoder(subpixel_up=cfg.extra.get("subpixel_up", True))
 
 
 def init_translator_frozen(cfg: ExperimentConfig, weight_dir: str | None,
@@ -194,7 +199,7 @@ def init_translator_frozen(cfg: ExperimentConfig, weight_dir: str | None,
     """enc_s/dec_s2t from a role-keyed dir, else a random init drawn from
     ``cfg.train.seed``."""
     with seeded(cfg.train.seed + 7):
-        enc, dec = make_translator_modules()
+        enc, dec = make_translator_modules(cfg)
     if weight_dir and os.path.exists(os.path.join(weight_dir, "enc_s.pth")):
         sds = load_role_keyed(weight_dir, ["enc_s", "dec_s2t"])
         enc.load_state_dict(sds["enc_s"], strict=True)
@@ -204,9 +209,15 @@ def init_translator_frozen(cfg: ExperimentConfig, weight_dir: str | None,
 
 def build_experiment(cfg: ExperimentConfig, device: torch.device,
                      load_weight_dir: str | None = None,
-                     centroid_path: str | None = None
+                     centroid_path: str | None = None,
+                     pretrained_backbone: str | None = None
                      ) -> tuple[SegTrainState, Callable, Callable]:
     """(state, step, eval_apply) for the warm-up, DG or self-training stage.
+
+    The student starts from a random init drawn from ``cfg.train.seed``,
+    with the backbone (and a matching head) of the ``pretrained_backbone``
+    file laid over it; a previous stage's ``<load_weight_dir>/student.pth``
+    replaces both.  The teacher starts as a copy of the student.
 
     ``step(state, batch) -> metrics`` (``train/steps.py``): the DG step for
     stage ``dg`` and for a warm-up with ``--extra no_translator``, else the
@@ -215,11 +226,16 @@ def build_experiment(cfg: ExperimentConfig, device: torch.device,
     """
     if cfg.stage not in TRAIN_STAGES:
         raise NotImplementedError(
-            f"stage {cfg.stage!r} is not ported yet: the port trains the warm-up, DG and "
-            "self-training stages (translator training is ROADMAP queue A item 13)")
+            f"stage {cfg.stage!r}: build_experiment builds the warm-up, DG and self-training "
+            "stages; the translator stage is diga_tpu_torch.cli.train_domain_translator")
     scfg = make_step_config(cfg)
     with seeded(cfg.train.seed):
         student = make_model(cfg)
+    if pretrained_backbone is not None:
+        if not os.path.exists(pretrained_backbone):
+            raise FileNotFoundError(f"--pretrained_backbone {pretrained_backbone!r} does not exist")
+        student.load_state_dict(pretrained_backbone_state_dict(
+            student, load_torch_state_dict(pretrained_backbone)), strict=True)
     if load_weight_dir and os.path.exists(os.path.join(load_weight_dir, "student.pth")):
         student.load_state_dict(load_role_keyed(load_weight_dir, ["student"])["student"],
                                 strict=True)
@@ -241,12 +257,7 @@ def build_experiment(cfg: ExperimentConfig, device: torch.device,
     return state, step, _eval_apply(student, cfg.extra.get("rgb_input", False), amp)
 
 
-def _reference_state_dict(model: nn.Module) -> dict[str, torch.Tensor]:
-    """The model's state_dict in the reference layout (no BN batch counters)."""
-    return {k: v for k, v in model.state_dict().items() if not k.endswith("num_batches_tracked")}
-
-
 def export_state_role_keyed(state: SegTrainState, out_dir: str) -> None:
     """Write student.pth and teacher.pth in the reference layout."""
-    export_role_keyed(out_dir, {"student": _reference_state_dict(state.student),
-                                "teacher": _reference_state_dict(state.teacher)})
+    export_role_keyed(out_dir, {"student": reference_state_dict(state.student),
+                                "teacher": reference_state_dict(state.teacher)})

@@ -4,16 +4,18 @@ Counterpart of ``diga_tpu/train/loop.py`` (:40-312) on one device:
   * the dual-scale multi-stream batches (the reference's small + full
     loader pairs, train_DiGA_gta2city_warm_up.py:117-136), built by host
     threads and copied to the device each step;
+  * the loop starts at ``state.step``, so a restored state resumes where
+    it stopped (``diga_tpu/train/loop.py:248``);
   * in-loop two-scale eval every ``eval_every`` steps through
     ``TwoScaleEvaluator``, exporting the student/teacher to
     ``<work_dir>/weights`` on each new best mIoU, as the JAX trainer's
     ``on_best`` does (``diga_tpu/cli/train_seg.py:95-105``; reference
-    :343-373): a run with no eval, or none above mIoU 0, writes no
-    ``weights``;
-  * the last step's ``student.pth``/``teacher.pth`` in
-    ``<work_dir>/weights_final``, a weights-only stand-in for the JAX
-    trainer's full-state ``ckpt_final`` until full-state checkpoints and
-    ``--resume`` land (ROADMAP queue A item 11).
+    :343-373), then calling the caller's ``on_best``: a run with no eval,
+    or none above mIoU 0, writes no ``weights``;
+  * a full-state checkpoint to ``save_path`` every ``save_every`` steps,
+    written in the background and joined at the end (``:274-276,306-309``).
+The caller writes the final state (``ckpt_final``).  The translator
+stage's two-stream iterator is ``make_translator_iterator``.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from ..data import (
 )
 from ..data.loader import BatchLoader
 from ..eval.evaluator import TwoScaleEvaluator, iter_val
+from ..utils.checkpoint import save_train_state, wait_for_checkpoints
 from ..utils.logging import MetricLogger
 from .build import export_state_role_keyed, wants_target
 from .state import SegTrainState
@@ -129,6 +132,16 @@ def make_train_iterator(cfg: ExperimentConfig, with_target: bool):
     return gen(), loaders
 
 
+def make_translator_iterator(cfg: ExperimentConfig):
+    """(iterator of {'s_img', 's_lbl', 't_img'} numpy batches, the loaders to
+    stop): the translator's source and target streams, seeded as the seg
+    stages' (``diga_tpu/cli/train_domain_translator.py:125-146``)."""
+    it, loaders = make_train_iterator(cfg, with_target=True)
+    batches = ({"s_img": b["s_img"], "s_lbl": b["s_lbl"].astype(np.int32), "t_img": b["t_img"]}
+               for b in it)
+    return batches, loaders
+
+
 def to_device(batch: dict, device: torch.device) -> dict:
     """numpy arrays -> tensors on ``device`` (pinned, asynchronous on the card)."""
     out = {}
@@ -150,9 +163,13 @@ class TrainLoopResult:
 def run_training(cfg: ExperimentConfig, state: SegTrainState, step_fn: Callable,
                  eval_apply: Callable | None, work_dir: str, device: torch.device,
                  num_steps: int | None = None, eval_limit: int | None = None,
-                 log_every: int = 50) -> TrainLoopResult:
-    """Sample, step, log, eval; export the best weights to
-    ``<work_dir>/weights`` and the last step's to ``<work_dir>/weights_final``."""
+                 log_every: int = 50,
+                 on_best: Callable[[SegTrainState, int, float], None] | None = None,
+                 save_every: int = 0, save_path: str | None = None) -> TrainLoopResult:
+    """Sample, step, log, eval from ``state.step`` to the last step; export
+    the best weights to ``<work_dir>/weights`` and call ``on_best(state, i,
+    miou)``; a background full-state save to ``save_path`` at every
+    ``i > 0`` divisible by ``save_every`` (0 = none)."""
     logger = MetricLogger(work_dir)
     steps = num_steps if num_steps is not None else cfg.train.num_steps
     it, loaders = make_train_iterator(cfg, wants_target(cfg))
@@ -165,6 +182,8 @@ def run_training(cfg: ExperimentConfig, state: SegTrainState, step_fn: Callable,
             batch = to_device(next(it), device)
             batch.pop("t_lbl", None)
             metrics = step_fn(state, batch)
+            if save_every and save_path and i > 0 and i % save_every == 0:
+                save_train_state(save_path, state, background=True)
             if i % log_every == 0:
                 host = {k: float(v) for k, v in metrics.items()}
                 dt, t_last = time.time() - t_last, time.time()
@@ -189,9 +208,11 @@ def run_training(cfg: ExperimentConfig, state: SegTrainState, step_fn: Callable,
                     best_miou, best_step = miou, i
                     export_state_role_keyed(state, os.path.join(work_dir, "weights"))
                     print(f"saved best weights at step {i} (mIoU {miou:.4f})", flush=True)
+                    if on_best is not None:
+                        on_best(state, i, miou)
     finally:
         for ld in loaders:
             ld.stop()
         logger.close()
-    export_state_role_keyed(state, os.path.join(work_dir, "weights_final"))
+        wait_for_checkpoints()
     return TrainLoopResult(best_miou, best_step, {k: float(v) for k, v in metrics.items()})

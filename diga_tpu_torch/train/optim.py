@@ -11,6 +11,12 @@ util/utils.py:36-48:
     is what ``torch.optim.SGD`` does.
 The LR of a step is ``schedule(step)`` with the step taken before its
 increment (``set_lr``), as the optax form indexes it.
+
+``adam_translator`` is the translator stage's optimizer, one per module
+(``diga_tpu/cli/train_domain_translator.py:78-84``, reference
+train_domain_translator.py:149-170): Adam(0.5, 0.999), eps 1e-8, no
+weight decay, its LR set to ``poly(lr, steps)(i)`` before update i, as
+``optax.adam(poly_schedule(...))`` counts once per update.
 """
 
 from __future__ import annotations
@@ -33,6 +39,11 @@ def sgd_grouped(model: torch.nn.Module, base_lr: float, momentum: float = 0.9,
     for g in groups:
         g["lr"] = base_lr * g["lr_mult"]
     return torch.optim.SGD(groups, lr=base_lr, momentum=momentum, weight_decay=weight_decay)
+
+
+def adam_translator(module: torch.nn.Module, base_lr: float) -> torch.optim.Adam:
+    return torch.optim.Adam([{"params": list(module.parameters()), "lr_mult": 1.0}],
+                            lr=base_lr, betas=(0.5, 0.999), eps=1e-8)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:

@@ -7,6 +7,12 @@ reads: the step counter, the frozen translator, the self-training class
 centroids, and one explicit ``torch.Generator`` per kind of random draw
 (source and target photometric factors, CrDoMix and DACS class
 selections, student dropout, teacher dropout).
+
+``state_dict``/``load_state_dict`` carry all of it for the full-state
+checkpoints (``utils/checkpoint.py``): the student and teacher (BN
+buffers included) and the frozen translator as reference role
+state_dicts, and the step, the SGD momentum, the centroids and each
+generator's state.  A restored state continues bit for bit.
 """
 
 from __future__ import annotations
@@ -35,6 +41,54 @@ class SegTrainState:
     gen_dacs: torch.Generator
     translator: nn.ModuleDict | None = None  # frozen {"enc_s", "dec_s2t"}
     centroids: Centroids | None = None  # self-training only, on the device
+
+    def generators(self) -> dict[str, torch.Generator]:
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if f.name.startswith("gen_")}
+
+    def state_dict(self) -> dict:
+        """{"roles": {role: state_dict}, "state": {step, optimizer, centroids,
+        generators}}, tensors where they live."""
+        roles = {"student": reference_state_dict(self.student),
+                 "teacher": reference_state_dict(self.teacher)}
+        if self.translator is not None:
+            roles.update({r: m.state_dict() for r, m in self.translator.items()})
+        cents = None if self.centroids is None else {"vectors": self.centroids.vectors,
+                                                     "counts": self.centroids.counts}
+        return {"roles": roles,
+                "state": {"step": self.step, "optimizer": self.optimizer.state_dict(),
+                          "centroids": cents,
+                          "generators": {k: g.get_state() for k, g in self.generators().items()}}}
+
+    def load_state_dict(self, sd: dict) -> None:
+        roles, st = sd["roles"], sd["state"]
+        self.student.load_state_dict(roles["student"], strict=True)
+        self.teacher.load_state_dict(roles["teacher"], strict=True)
+        if self.translator is not None:
+            for r, m in self.translator.items():
+                m.load_state_dict(roles[r], strict=True)
+        self.optimizer.load_state_dict(st["optimizer"])
+        self.step = int(st["step"])
+        if (st["centroids"] is None) != (self.centroids is None):
+            raise ValueError("the checkpoint and the state disagree on having centroids")
+        if self.centroids is not None:
+            device = self.centroids.vectors.device
+            self.centroids = Centroids(st["centroids"]["vectors"].to(device),
+                                       st["centroids"]["counts"].to(device))
+        for k, g in self.generators().items():
+            g.set_state(st["generators"][k])
+        attach_dropout_generators(self)
+
+
+def reference_state_dict(model: nn.Module) -> dict[str, torch.Tensor]:
+    """The model's state_dict in the reference layout (no BN batch counters)."""
+    return {k: v for k, v in model.state_dict().items() if not k.endswith("num_batches_tracked")}
+
+
+def attach_dropout_generators(state: "SegTrainState") -> None:
+    """The head dropouts draw from the state's own generators."""
+    state.student.final.head[0].generator = state.gen_student_dropout
+    state.teacher.final.head[0].generator = state.gen_teacher_dropout
 
 
 def _generator(device: torch.device, seed: int) -> torch.Generator:
@@ -65,6 +119,5 @@ def create_seg_state(student: DeepLabV2, optimizer: torch.optim.Optimizer, seed:
         translator=translator,
         centroids=None if centroids is None else Centroids(
             centroids.vectors.to(device, torch.float32), centroids.counts.to(device, torch.float32)))
-    student.final.head[0].generator = state.gen_student_dropout
-    teacher.final.head[0].generator = state.gen_teacher_dropout
+    attach_dropout_generators(state)
     return state

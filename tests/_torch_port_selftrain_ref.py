@@ -139,7 +139,7 @@ def main(out_dir: str, variant: str = "gta") -> None:
                 "centroids|vectors": np.asarray(st.centroids.vectors),
                 "centroids|counts": np.asarray(st.centroids.counts)}
 
-    sds = translator_state_dict_from_jax(np_tree(enc_p), np_tree(dec_p))
+    sds = translator_state_dict_from_jax({"enc_s": np_tree(enc_p), "dec_s2t": np_tree(dec_p)})
     np.savez(f"{out_dir}/init.npz", **snapshot(state), **_flat("enc_s", sds["enc_s"]),
              **_flat("dec_s2t", sds["dec_s2t"]))
     for i in range(N_STEPS):

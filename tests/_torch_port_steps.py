@@ -139,7 +139,7 @@ def _port_setup(stage, jstate, K, opts, lr_warmup):
     student = DeepLabV2(num_classes=K, layers=LAYERS, droprate=0.0)
     student.load_state_dict(state_dict_from_jax(_np(jstate.params), _np(jstate.batch_stats),
                                                 LAYERS), strict=True)
-    sds = translator_state_dict_from_jax(_np(jstate.frozen["enc_s"]), _np(jstate.frozen["dec_s2t"]))
+    sds = translator_state_dict_from_jax(_np(jstate.frozen))
     enc, dec = ImgEncoder(dim=8, n_downsample=2, n_res=1), ImgDecoder(dim=32, n_upsample=2, n_res=1)
     enc.load_state_dict(sds["enc_s"], strict=True)
     dec.load_state_dict(sds["dec_s2t"], strict=True)

@@ -96,8 +96,10 @@ def test_port_imports_no_jax_and_no_reference_package():
         "bad = sorted(m for m in sys.modules if m.split('.')[0].startswith('jax')"
         " or m.split('.')[0] in ('flax', 'optax', 'orbax')"
         " or m == 'diga_tpu' or m.startswith('diga_tpu.'))\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 46 else 0)\n"
+        "new = {'diga_tpu_torch.ops.subpixel', 'diga_tpu_torch.models.vgg',"
+        " 'diga_tpu_torch.train.steps_translator', 'diga_tpu_torch.cli.train_domain_translator'}\n"
+        "print(len(mods), bad, sorted(new - set(mods)))\n"
+        "sys.exit(1 if bad or new - set(mods) or len(mods) < 50 else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

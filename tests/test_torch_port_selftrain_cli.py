@@ -13,12 +13,12 @@ are registered in both packages' preset registries; the port runs with
   tests/test_torch_port_prototypes.py);
 * ``train_self_training``, 2 steps on pseudo-labels that the port's own
   generator wrote and centroids its own ``calc_centroids`` wrote: finite
-  losses with ``loss_crossmix``, ``consensus_kept`` in [0, 1], and
-  ``student.pth``/``teacher.pth`` in ``weights_final`` (no eval, so no
-  ``weights``) that load strictly;
+  losses with ``loss_crossmix``, ``consensus_kept`` in [0, 1], and the
+  full state in ``ckpt_final`` (no eval, so no ``weights``) whose
+  ``student.pth``/``teacher.pth`` load strictly;
 * ``train_dg``, 2 steps, likewise;
 * without ``--device cpu`` each raises here, and ``--extra
-  fuse_forwards=true`` is refused.
+  fuse_forwards=true`` and ``--pretrained_backbone auto`` are refused.
 """
 
 import dataclasses
@@ -74,15 +74,15 @@ def _tiny(presets, name):
 
 @pytest.fixture(scope="module")
 def chain(tmp_path_factory):
-    """Fixtures, a student.pth from a JAX init in a warm-up's
-    ``weights_final`` (a warm-up with no eval writes no ``weights``), and
-    the tiny presets in both registries (restored afterwards)."""
+    """Fixtures, a student.pth from a JAX init where a warm-up's
+    ``ckpt_final`` holds it (a warm-up with no eval writes no ``weights``),
+    and the tiny presets in both registries (restored afterwards)."""
     tmp = tmp_path_factory.mktemp("chain")
     gta_list = synthetic.make_gta5_fixture(str(tmp / "gta"), n=2, h=HW[0], w=HW[1])
     img, lbl = synthetic.make_cityscapes_fixture(str(tmp / "city"), n=2, h=HW[0], w=HW[1],
                                                  split="train")
     _, params, stats = jax_tiny_deeplab(seed=31, hw=HW)
-    wdir = str(tmp / "warmup" / "weights_final")
+    wdir = str(tmp / "warmup" / "ckpt_final")
     export_role_keyed(wdir, {"student": segmodel_to_torch(params, stats, LAYERS)})
     names = {"gta2city_warmup": "tiny_chain_warmup", "gta2city_selftrain": "tiny_chain_st",
              "dg_gta5": "tiny_chain_dg"}
@@ -182,7 +182,9 @@ def test_train_self_training_on_the_ports_own_pseudo_labels_and_centroids(chain,
         assert [json.loads(line)["step"] for line in f] == [0]
     cfg = port_presets.get_preset("tiny_chain_st")
     assert not os.path.exists(os.path.join(wd, "weights"))  # no eval, so no best weights
-    final = os.path.join(wd, "weights_final")
+    final = os.path.join(wd, "ckpt_final")
+    assert sorted(os.listdir(final)) == ["dec_s2t.pth", "enc_s.pth", "state.pth", "student.pth",
+                                         "teacher.pth"]
     _, model = build_eval(cfg, final, torch.device("cpu"))  # strict
     model.load_state_dict(torch.load(os.path.join(final, "teacher.pth")), strict=True)
 
@@ -196,7 +198,8 @@ def test_train_dg_two_steps(chain, capsys):
     assert set(result.last_metrics) == {"loss", "loss_semseg", "loss_distil"}
     assert all(math.isfinite(v) for v in result.last_metrics.values())
     assert not os.path.exists(os.path.join(wd, "weights"))  # no eval, so no best weights
-    assert sorted(os.listdir(os.path.join(wd, "weights_final"))) == ["student.pth", "teacher.pth"]
+    assert sorted(os.listdir(os.path.join(wd, "ckpt_final"))) == ["state.pth", "student.pth",
+                                                                  "teacher.pth"]
 
 
 def _argv(chain, cli):
@@ -219,11 +222,12 @@ def test_new_clis_default_to_the_card(chain, cli):
         cli.main(_argv(chain, cli))
 
 
-@pytest.mark.parametrize("flags", [["--extra", "fuse_forwards=true"], ["--resume"],
+@pytest.mark.parametrize("flags", [["--extra", "fuse_forwards=true"],
                                    ["--pretrained_backbone", "auto"],
                                    ["--preset", "gta2city_translator"]])
 def test_self_training_refusals(chain, flags, capsys):
     with pytest.raises(SystemExit):
         train_self_training.main([*_argv(chain, train_self_training), "--device", "cpu", *flags])
     err = capsys.readouterr().err
-    assert "ROADMAP queue A item" in err or "expected 'selftrain'" in err
+    assert ("ROADMAP queue A item" in err or "expected 'selftrain'" in err
+            or "auto downloads" in err)

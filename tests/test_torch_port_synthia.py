@@ -484,7 +484,7 @@ def _tiny(presets, name):
 @pytest.fixture(scope="module")
 def chain(tmp_path_factory):
     """SYNTHIA and Cityscapes fixtures, a student.pth from a 16-class JAX init
-    and a seeded translator in a warm-up's ``weights_final``, and tiny
+    and a seeded translator in a role-keyed weight directory, and tiny
     SYNTHIA presets in both registries (restored afterwards)."""
     tmp = tmp_path_factory.mktemp("synthia_chain")
     syn_list = port_synthetic.make_synthia_fixture(str(tmp / "synthia"), n=2, h=HW[0], w=HW[1])
@@ -495,7 +495,7 @@ def chain(tmp_path_factory):
     # seed 43: its predictions meet the SYNTHIA labels on 5 or more pixels
     # of two classes, so --source centroids are not all zero
     _, params, stats = jax_tiny_deeplab(seed=43, hw=HW, num_classes=K)
-    wdir = str(tmp / "given" / "weights_final")
+    wdir = str(tmp / "given" / "weights")
     with torch.random.fork_rng():
         torch.manual_seed(5)
         translator = {"enc_s": ImgEncoder().state_dict(), "dec_s2t": ImgDecoder().state_dict()}
@@ -551,7 +551,7 @@ def test_synthia_chain_end_to_end(chain, capsys):
                             "--load_weight_dir", chain["wdir"], *data, *cpu])
     assert set(r.last_metrics) == {"loss", "loss_semseg", "loss_distil"}
     assert all(math.isfinite(v) for v in r.last_metrics.values())
-    final = os.path.join(wu, "weights_final")
+    final = os.path.join(wu, "ckpt_final")
     pseudo = os.path.join(chain["city"], "pseudo_train_warm_up")
     assert pseudolabel_generator.main(["--preset", "tiny_synthia_warmup", "--weight_dir", final,
                                        "--output_dir", pseudo, *data, *cpu]) == 2
@@ -580,7 +580,7 @@ def test_synthia_chain_end_to_end(chain, capsys):
                                    "consensus_kept"}
     assert all(math.isfinite(v) for v in r.last_metrics.values())
     scores = evaluate_val.main(["--preset", "tiny_synthia_st", "--weight_dir",
-                                os.path.join(st, "weights_final"), "--target_root",
+                                os.path.join(st, "ckpt_final"), "--target_root",
                                 chain["city"], *chain["val"], "--eval_limit", "1", *cpu])
     s = scores["cityscapes"]
     assert {"mean_iou", "mean_iou_13"} <= set(s) and 0.0 <= s["mean_iou_13"] <= 1.0

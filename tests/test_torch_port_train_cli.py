@@ -5,18 +5,20 @@ registered preset (layers (1, 1, 1, 1), crop 32x64, f32) on synthetic
 GTA5 and Cityscapes fixtures with ``--device cpu``: finite ``loss=`` lines,
 a ``metrics.jsonl``, and ``student.pth``/``teacher.pth`` that load into the
 port's eval model with ``strict=True``.  The weight directories are the JAX
-trainer's (``diga_tpu/cli/train_seg.py:95-117``): ``<work_dir>/weights``
-only on a new best mIoU, the last step's in ``<work_dir>/weights_final``
-(the stand-in for JAX's ``ckpt_final``).  Without ``--device cpu`` it
-raises here (the default is the card), and the flags whose slices have not
-landed are refused.
+trainer's (``diga_tpu/cli/train_seg.py:95-117``): ``<work_dir>/weights`` and
+the full-state ``<work_dir>/ckpt_best`` only on a new best mIoU, the last
+step's full state in ``<work_dir>/ckpt_final``.  Without ``--device cpu``
+it raises here (the default is the card), and the flags whose slices have
+not landed are refused.
 """
 
+import copy
 import dataclasses
 import json
 import math
 import os
 import re
+import shutil
 
 import pytest
 import torch
@@ -26,9 +28,18 @@ import diga_tpu_torch.cli.train_warm_up as cli
 from diga_tpu_torch.configs import presets
 from diga_tpu_torch.data import synthetic
 from diga_tpu_torch.train import loop
-from diga_tpu_torch.train.build import _reference_state_dict, build_eval
+from diga_tpu_torch.train.build import build_eval
+from diga_tpu_torch.train.state import reference_state_dict
 
 LAYERS = (1, 1, 1, 1)
+
+
+@pytest.fixture()
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed after the test: the checkpoints these
+    tests write at the reference translator widths take hundreds of MB."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _tiny():
@@ -71,10 +82,13 @@ def test_two_steps_log_and_export(argv, tmp_path, capsys):
         recs = [json.loads(line) for line in f]
     assert [r["step"] for r in recs] == [0]
     assert all(math.isfinite(r["loss_distil"]) and math.isfinite(r["loss_semseg"]) for r in recs)
-    # no eval ran, so no best weights: only the last step's (JAX writes no weights/ either)
+    # no eval ran, so no best weights: only the last step's state (JAX writes no weights/ either)
     assert not os.path.exists(tmp_path / "wd" / "weights")
-    wdir = str(tmp_path / "wd" / "weights_final")
-    assert sorted(os.listdir(wdir)) == ["student.pth", "teacher.pth"]
+    assert not os.path.exists(tmp_path / "wd" / "ckpt_best")
+    wdir = str(tmp_path / "wd" / "ckpt_final")
+    assert sorted(os.listdir(wdir)) == ["dec_s2t.pth", "enc_s.pth", "state.pth", "student.pth",
+                                        "teacher.pth"]
+    assert torch.load(os.path.join(wdir, "state.pth"))["step"] == 2
     _, model = build_eval(_tiny(), wdir, torch.device("cpu"))  # strict load
     teacher = torch.load(os.path.join(wdir, "teacher.pth"))
     model.load_state_dict(teacher, strict=True)
@@ -88,7 +102,7 @@ def test_defaults_to_the_card(argv):
         cli.main(argv)
 
 
-@pytest.mark.parametrize("flags", [["--resume"], ["--pretrained_backbone", "auto"],
+@pytest.mark.parametrize("flags", [["--pretrained_backbone", "auto"],
                                    ["--n_devices", "2"], ["--multihost"],
                                    ["--preset", "gta2city_selftrain"]])
 def test_unported_flags_are_refused(argv, flags):
@@ -116,19 +130,22 @@ def test_in_loop_eval_scores_and_exports_the_best(argv, tmp_path, monkeypatch):
     mious = [r["val/miou"] for r in recs if "val/miou" in r]
     assert len(mious) == 1 and 0.0 <= mious[0] <= 1.0  # step 1 (step 0 is never scored)
     assert result.best_step == (1 if mious[0] > 0 else 0)
-    # step 1 is the last: a best there writes weights/ beside weights_final
+    # step 1 is the last: a best there writes weights/ and ckpt_best/ beside ckpt_final
     assert os.path.exists(tmp_path / "wd" / "weights") == (mious[0] > 0)
-    for d in ("weights", "weights_final") if mious[0] > 0 else ("weights_final",):
+    assert os.path.exists(tmp_path / "wd" / "ckpt_best") == (mious[0] > 0)
+    for d in ("weights", "ckpt_best", "ckpt_final") if mious[0] > 0 else ("ckpt_final",):
         build_eval(cfg, str(tmp_path / "wd" / d), torch.device("cpu"))  # strict load
 
 
 @pytest.mark.parametrize("mious,best", [((0.2, 0.5, 0.3), 2), ((0.0, 0.0, 0.0), None)],
                          ids=["best-before-last", "none-above-zero"])
-def test_weights_hold_the_best_step_and_weights_final_the_last(argv, tmp_path, monkeypatch,
-                                                               capsys, mious, best):
+def test_weights_hold_the_best_step_and_ckpt_final_the_last(argv, tmp_path, monkeypatch,
+                                                            capsys, mious, best):
     """4 steps, scored after steps 1-3 with the mIoUs fixed by the test:
-    ``weights`` holds the best step's student and teacher, ``weights_final``
-    the last step's, and a run with no mIoU above 0 writes no ``weights``."""
+    ``weights`` and ``ckpt_best`` hold the best step's student and teacher
+    (``ckpt_best`` with that step's counter, momentum and generators),
+    ``ckpt_final`` the last step's, and a run with no mIoU above 0 writes
+    neither ``weights`` nor ``ckpt_best``."""
     _, argv = _with_eval(argv, tmp_path, monkeypatch, num_steps=4)
     scores = iter(mious)
 
@@ -148,9 +165,10 @@ def test_weights_hold_the_best_step_and_weights_final_the_last(argv, tmp_path, m
 
         def recording_step(state, batch):
             metrics = step(state, batch)
-            snapshots.append({role: {k: v.clone() for k, v in
-                                     _reference_state_dict(getattr(state, role)).items()}
-                              for role in ("student", "teacher")})
+            snapshots.append({**{role: {k: v.clone() for k, v in
+                                        reference_state_dict(getattr(state, role)).items()}
+                                 for role in ("student", "teacher")},
+                              "state": copy.deepcopy(state.state_dict()["state"])})
             return metrics
 
         return state, recording_step, eval_apply
@@ -169,14 +187,27 @@ def test_weights_hold_the_best_step_and_weights_final_the_last(argv, tmp_path, m
     def equal(a, b):
         return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
 
+    def equal_state(d, snap):
+        st = torch.load(os.path.join(wd, d, "state.pth"))
+        mom = lambda o: [v["momentum_buffer"] for v in o["state"].values()]
+        return (st["step"] == snap["step"] and st["generators"].keys() == snap["generators"].keys()
+                and all(torch.equal(st["generators"][k], v) for k, v in snap["generators"].items())
+                and all(torch.equal(a, b) for a, b in zip(mom(st["optimizer"]),
+                                                          mom(snap["optimizer"]))))
+
     for role in ("student", "teacher"):
-        assert equal(load("weights_final", role), snapshots[-1][role])
+        assert equal(load("ckpt_final", role), snapshots[-1][role])
+    assert equal_state("ckpt_final", snapshots[-1]["state"])
     if best is None:
         assert result.best_miou == 0.0 and not os.path.exists(wd / "weights")
-        assert "no best weights" in out and "weights_final" in out
+        assert not os.path.exists(wd / "ckpt_best")
+        assert "no best weights" in out and "ckpt_final" in out
         return
     assert result.best_step == best and result.best_miou == max(mious)
     for role in ("student", "teacher"):
-        assert equal(load("weights", role), snapshots[best][role])
-        assert not equal(load("weights", role), snapshots[-1][role])
-    assert f"best weights in {wd}/weights" in out
+        for d in ("weights", "ckpt_best"):
+            assert equal(load(d, role), snapshots[best][role])
+            assert not equal(load(d, role), snapshots[-1][role])
+    assert equal_state("ckpt_best", snapshots[best]["state"])
+    assert snapshots[best]["state"]["step"] == best + 1
+    assert f"best weights in {wd}/weights and {wd}/ckpt_best" in out

@@ -37,7 +37,7 @@ def jax_translator():
 
 
 def _port(enc_p, dec_p):
-    sds = translator_state_dict_from_jax(enc_p, dec_p)
+    sds = translator_state_dict_from_jax({"enc_s": enc_p, "dec_s2t": dec_p})
     enc = ImgEncoder(dim=ENC["dim"], n_downsample=ENC["n_downsample"], n_res=ENC["n_res"])
     dec = ImgDecoder(dim=DEC["dim"], n_upsample=DEC["n_upsample"], n_res=DEC["n_res"])
     enc.load_state_dict(sds["enc_s"], strict=True)
@@ -74,7 +74,7 @@ def test_encoder_decoder_match_jax(jax_translator, subpixel_up):
 
 def test_state_dicts_have_the_reference_keys(jax_translator):
     _, enc_p, dec_p = jax_translator
-    sds = translator_state_dict_from_jax(enc_p, dec_p)
+    sds = translator_state_dict_from_jax({"enc_s": enc_p, "dec_s2t": dec_p})
     assert "model.0.conv.weight" in sds["enc_s"]
     assert "model.3.model.1.model.0.conv.bias" in sds["enc_s"]
     assert "model.0.model.0.model.1.conv.weight" in sds["dec_s2t"]
