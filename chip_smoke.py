@@ -11,7 +11,8 @@ warm-up (``train_warm_up``), the self-training chain from the warm-up's
 weights (``pseudolabel_generator`` -> ``calc_centroids`` ->
 ``train_self_training``), the DG stage (``train_dg``), the
 SYNTHIA->Cityscapes chain at 16 classes, a ``--parity`` warm-up, the
-translator stage (``train_domain_translator``) and a resumed warm-up.
+translator stage (``train_domain_translator``), a resumed warm-up, and the
+semi-supervised Cityscapes chain on HRNet-W48+OCR.
 Phases, any failure of which exits non-zero:
 
   1. device: require CUDA; print the card's name and power limit
@@ -40,7 +41,9 @@ Phases, any failure of which exits non-zero:
   4. tiny-depth model on the card against the same model on the CPU, f32,
      TF32 off: eval logits within 1e-3 of the CPU logits' largest
      magnitude; 3 warm-up, 3 DG and 3 self-training steps with the same
-     injected draws: losses at 1e-4 relative, ``consensus_kept`` within
+     injected draws, then 3 semiseg warm-up and 3 semiseg self-training
+     steps of a tiny HRNet+OCR (branches 8-64, OCR 32/16): losses at 1e-4
+     relative, ``consensus_kept`` within
      1e-3, parameters within 1e-5, BN running statistics within 1e-4 +
      1e-3 x |value| (cuDNN's f32 conv algorithms), centroid counts equal
      and vectors within 1e-5 + 1e-4 x |value|
@@ -75,7 +78,8 @@ Phases, any failure of which exits non-zero:
      SYNTHIA (finite (16, 256)) -> train_self_training (preset
      synthia2city_selftrain, 3 steps) -> evaluate_val at 16 classes (2 val
      images, scores with mean_iou_13); then train_warm_up --parity (preset
-     gta2city_warmup, f32, the kornia chain, 2 steps).  Then the SYNTHIA
+     gta2city_warmup, f32, the kornia chain, 2 steps, at one bottleneck a
+     stage and R101's widths, to save f32 autotuning time).  Then the SYNTHIA
      warm-up step timed as in 6
   8b. main paths, the translator stage and the resume, at full width:
      train_domain_translator (preset gta2city_translator: encoders 64,
@@ -91,6 +95,20 @@ Phases, any failure of which exits non-zero:
      the perceptual term with remat); train_warm_up --num_steps 2
      --save_every 1, then --resume --num_steps 3: one more step, from step
      2 to 3
+  8c. main paths, the semi-supervised Cityscapes chain at full width
+     (HRNet-W48+OCR, 19 classes, bf16, a numpy-seeded student.pth; 1024x2048
+     Cityscapes fixtures: a labeled source of 2 images whose labels come
+     through --target_lbl_list by position, an unlabeled target of 2, 2 val
+     images): train_warm_up (semiseg_1_8_warmup: the DG step with the 0.1x
+     OCR aux term and the RGB flip; source 1 + 2 at 512x1024 and 1024x2048,
+     target 1 + 2 for the BN-statistics forward, crop 512x1024, 3 steps) ->
+     pseudolabel_generator (2 images) -> calc_centroids (one epoch: finite
+     (19, 512)) -> train_self_training (semiseg_1_8_selftrain, no
+     translator, 3 steps) -> evaluate_val (2 images: finite two-scale
+     logits whose argmax is the dumped prediction); each ckpt_final's
+     student.pth loads strictly into the eval model.  Then the eval's ms/img
+     and the warm-up and self-training steps timed as in 6, beside the
+     compute floor counted from the code (``hrnet_ocr_gmacs``)
   9. kernel timing: per-site GroupNorm and distillation device times
      (CUDA events around back-to-back calls queued behind a sleep kernel)
      against their byte bounds, plain versions and nearest library calls
@@ -110,15 +128,21 @@ steps) 2, 2, 12, 12; each train_domain_translator run 0, 0, 0, 0 (the
 translator stage reaches no TPU kernel: its InstanceNorm is plain
 reductions); the warm-up from the translator's weights (1 step) 1, 1, 6,
 6; the resume's two warm-ups (2 steps, then 1) 2, 2, 12, 12 and 1, 1, 6,
-6.  On a train path every B1a launch must be at its site: bf16 (6, 512,
-896, 19) for the GTA5 warm-ups and self-training, (8, 512, 896, 19) for
-DG, (8, 512, 896, 16) and (6, 512, 896, 16) for the SYNTHIA warm-up and
-self-training, f32 (6, 512, 896, 19) under --parity.  A kernel's
+6; the semiseg train_warm_up (3 steps) 6, 6, 0, 0 (the logits and the
+OCR aux logits), train_self_training (3 steps) 3, 3, 0, 0, and its
+pseudolabel_generator, calc_centroids and evaluate_val 0, 0, 0, 0
+(HRNet+OCR has no GroupNorm).  On a train path every B1a launch must be
+at its site: bf16 (6, 512, 896, 19) for the GTA5 warm-ups and
+self-training, (8, 512, 896, 19) for DG, (8, 512, 896, 16) and (6, 512,
+896, 16) for the SYNTHIA warm-up and self-training, f32 (6, 512, 896, 19)
+under --parity, bf16 (6, 512, 1024, 19) for the semiseg warm-up and
+self-training.  A kernel's
 ``launches`` in the JSON line is its sum over these runs.
 
 ``--profile DIR`` also writes torch.profiler tables and traces of one
-two-scale eval and of one warm-up, self-training, DG and translator step
-into DIR, with their busy shares.
+two-scale eval and of one warm-up, self-training, DG and translator step,
+and of the semiseg eval, warm-up and self-training step, into DIR, with
+their busy shares.
 """
 
 from __future__ import annotations
@@ -147,6 +171,7 @@ from diga_tpu_torch.configs.presets import get_preset
 from diga_tpu_torch.data import cityscapes_dataset, synthetic
 from diga_tpu_torch.eval.evaluator import two_scale_logits
 from diga_tpu_torch.models import resnet_deeplab
+from diga_tpu_torch.models.hrnet_ocr import HRNetOCR
 from diga_tpu_torch.models.resnet_deeplab import DeepLabV2
 from diga_tpu_torch.models.translator import ImgDecoder, ImgEncoder
 from diga_tpu_torch.models.vgg import VGG19Features
@@ -171,6 +196,7 @@ from diga_tpu_torch.utils.checkpoint import export_role_keyed
 # f32 non-tensor-core FLOP/s, the rate the GroupNorm arithmetic runs at
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak, the semiseg steps' compute floor
 SLEEP_CYCLES_PER_MS = 2_000_000  # torch.cuda._sleep at the H100's clock of at most 1.98 GHz
 GN_SITES = [(1, 129, 257, 256), (1, 65, 129, 256)]  # eval ASPP GN at full / half scale
 GN_TRAIN_SITES = [
@@ -195,14 +221,17 @@ DISTILL_SHAPE = (6, 512, 896, 19)  # warm-up/self-training upsampled [clean; aug
 DISTILL_DG_SHAPE = (8, 512, 896, 19)  # the DG step's, 4 source images
 DISTILL_SYNTHIA_WARMUP_SHAPE = (8, 512, 896, 16)  # the SYNTHIA warm-up's, 1 + 3 source images
 DISTILL_SYNTHIA_SELFTRAIN_SHAPE = (6, 512, 896, 16)  # the SYNTHIA self-training's, 1 + 2
+# the semiseg warm-up's (logits and OCR aux logits) and self-training's, 1 + 2 at crop 512x1024
+DISTILL_SEMISEG_SHAPE = (6, 512, 1024, 19)
 DISTILL_SITES = [DISTILL_SHAPE, DISTILL_DG_SHAPE, DISTILL_SYNTHIA_WARMUP_SHAPE,
-                 DISTILL_SYNTHIA_SELFTRAIN_SHAPE]
+                 DISTILL_SYNTHIA_SELFTRAIN_SHAPE, DISTILL_SEMISEG_SHAPE]
 BOTH = (torch.float32, torch.bfloat16)
 DISTILL_CHECKS = [  # (shape, dtypes, logit scale, base pointer offset in elements)
     (DISTILL_SHAPE, BOTH, 3.0, 0),
     (DISTILL_DG_SHAPE, BOTH, 3.0, 0),
     (DISTILL_SYNTHIA_WARMUP_SHAPE, BOTH, 3.0, 0),
     (DISTILL_SYNTHIA_SELFTRAIN_SHAPE, BOTH, 3.0, 0),
+    (DISTILL_SEMISEG_SHAPE, BOTH, 3.0, 0),
     ((2, 7, 13, 19), BOTH, 3.0, 0),  # ragged; the aug half starts at 91·K·elem, not 16-aligned
     ((2, 9, 11, 16), BOTH, 3.0, 0),  # K=16 (SYNTHIA)
     ((2, 8, 16, 32), BOTH, 3.0, 0),  # K=32, the largest tiles
@@ -219,6 +248,8 @@ SYNTHIA_PRESET = "synthia2city_warmup"
 SYNTHIA_SELFTRAIN_PRESET = "synthia2city_selftrain"
 TRANSLATOR_PRESET = "gta2city_translator"
 SYNTHIA_TRANSLATOR_PRESET = "synthia2city_translator"
+SEMISEG_WARMUP_PRESET = "semiseg_1_8_warmup"
+SEMISEG_SELFTRAIN_PRESET = "semiseg_1_8_selftrain"
 PSEUDO_DIR = "pseudo_train_warm_up"  # the self-training presets' pseudo_dir
 OUT_HW, DS_HW = (1024, 2048), (512, 1024)
 SYNTHIA_HW = (760, 1280)  # SYNTHIA-RAND-CITYSCAPES' own image size
@@ -226,6 +257,7 @@ N_IMAGES = 2
 SEED = 0
 TRAIN_STEPS = 3
 PARITY_STEPS = 2
+PARITY_LAYERS = [1, 1, 1, 1]  # the --parity warm-up's depth: R101's widths, one block a stage
 TRAIN_PATHS = ("train_warm_up", "train_self_training", "train_dg", "synthia train_warm_up",
                "synthia train_self_training", "parity train_warm_up",
                "translated train_warm_up", "resume train_warm_up", "resumed train_warm_up")
@@ -234,6 +266,15 @@ TRANSLATOR_SHORT_STEPS = 2  # the SYNTHIA and the VGG translator runs
 # the translator stage reaches no TPU kernel: each run must launch none
 TRANSLATOR_PATHS = ("train_domain_translator", "synthia train_domain_translator",
                     "vgg train_domain_translator")
+# HRNet+OCR has no GroupNorm: its train paths launch B1 only, its eval paths nothing
+SEMISEG_TRAIN_PATHS = ("semiseg train_warm_up", "semiseg train_self_training")
+SEMISEG_EVAL_PATHS = ("semiseg pseudolabel_generator", "semiseg calc_centroids",
+                      "semiseg evaluate_val")
+TINY_HRNET = {  # phase 4's HRNet+OCR: one block per stage, branches (8, 16, 32, 64)
+    "stem_channels": 8, "stage1_blocks": 1, "stage1_channels": 8,
+    "stages": [(1, 1, (8, 16)), (1, 1, (8, 16, 32)), (1, 1, (8, 16, 32, 64))],
+    "ocr_mid_channels": 32, "ocr_key_channels": 16,
+}
 DEVICE = torch.device("cuda")  # the main paths' device, passed to every CLI as --device
 TPU_KERNELS = {  # name: (id, source, the TPU kernel it replaces)
     "distill_loss": ("B1a", "diga_tpu_torch/csrc/distill.cu", "diga_tpu/ops/pallas_kernels.py:35"),
@@ -267,10 +308,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def seeded_state_dict(model: DeepLabV2, seed: int) -> dict:
+def seeded_state_dict(model: torch.nn.Module, seed: int) -> dict:
     """Random weights for ``model``'s keys from a numpy seed: kaiming-scaled
-    convs and linears, BN statistics near (0, 1), small residual-branch BN
-    scales so activations stay bounded through 33 bottlenecks."""
+    convs and linears, BN statistics near (0, 1), small scales on the last
+    BN of each residual branch (DeepLab's bottlenecks, HRNet's BasicBlocks)
+    so activations stay bounded through the residual chains."""
     rng = np.random.default_rng(seed)
     sd = {}
     for k, v in model.state_dict().items():
@@ -285,7 +327,7 @@ def seeded_state_dict(model: DeepLabV2, seed: int) -> dict:
             a = rng.normal(size=shape) * 0.1
         elif k.endswith("running_var"):
             a = rng.uniform(0.5, 1.5, size=shape)
-        elif ".bn3." in k:
+        elif ".bn3." in k or (".branches." in k and ".bn2." in k):
             a = rng.uniform(0.1, 0.3, size=shape)
         else:  # BN / GN scales
             a = rng.uniform(0.8, 1.2, size=shape)
@@ -654,9 +696,10 @@ def phase_gn_timing(card: str) -> dict:
     return per_kernel
 
 
-def phase_profile(eval_apply, img, lbl, ms_per_img: float, out_dir: str) -> None:
+def phase_profile(eval_apply, img, lbl, ms_per_img: float, out_dir: str,
+                  name: str = "eval") -> None:
     """Device time of one two-scale eval by op (torch.profiler); the busy
-    share is that device time over the unprofiled ms/img of phase 6."""
+    share is that device time over the unprofiled ms/img of phase 5 (or 8c)."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
@@ -664,11 +707,11 @@ def phase_profile(eval_apply, img, lbl, ms_per_img: float, out_dir: str) -> None
         eval_ms_per_img(eval_apply, img, lbl, 1)
     avgs = prof.key_averages()
     table = avgs.table(sort_by="self_cuda_time_total", row_limit=60)
-    with open(os.path.join(out_dir, "eval_profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{name}_profile.txt"), "w") as f:
         f.write(table)
-    prof.export_chrome_trace(os.path.join(out_dir, "eval_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"{name}_trace.json"))
     dev_ms = device_time_us(avgs) / 1e3
-    print(f"profile: one two-scale eval, device time {dev_ms:.2f} ms; busy share "
+    print(f"profile: one two-scale {name}, device time {dev_ms:.2f} ms; busy share "
           f"{dev_ms / ms_per_img:.3f} of {ms_per_img:.2f} ms/img; table and trace in {out_dir}",
           flush=True)
     print("\n".join(table.splitlines()[:30]))
@@ -756,13 +799,20 @@ def phase_distill_vs_plain() -> dict:
     return errs
 
 
+def tiny_model(hrnet: bool) -> torch.nn.Module:
+    return (HRNetOCR(19, TINY_HRNET, droprate=0.0) if hrnet
+            else DeepLabV2(19, (1, 1, 1, 1), droprate=0.0))
+
+
 def tiny_train(stage: str, device: str, model_sd: dict, translator_sd: dict,
-               centroids: Centroids):
-    """A tiny f32 train state of ``stage`` on ``device`` and its step."""
-    student = DeepLabV2(19, (1, 1, 1, 1), droprate=0.0)
+               centroids: Centroids, hrnet: bool = False):
+    """A tiny f32 train state of ``stage`` on ``device`` and its step; with
+    ``hrnet`` the semiseg recipe (no translator, the DG step as the warm-up,
+    the 0.1x aux term, the RGB flip)."""
+    student = tiny_model(hrnet)
     student.load_state_dict(model_sd, strict=True)
     translator = None
-    if stage != "dg":
+    if stage != "dg" and not hrnet:
         enc, dec = ImgEncoder(dim=16, n_res=1), ImgDecoder(dim=64, n_res=1)
         enc.load_state_dict(translator_sd["enc_s"], strict=True)
         dec.load_state_dict(translator_sd["dec_s2t"], strict=True)
@@ -771,31 +821,35 @@ def tiny_train(stage: str, device: str, model_sd: dict, translator_sd: dict,
     opt = sgd_grouped(student, 2.5e-4)
     state = create_seg_state(student, opt, SEED, translator,
                              centroids if stage == "selftrain" else None)
+    semiseg = dict(aux_weight=0.1, rgb_input=True, use_crdomix=False) if hrnet else {}
     cfg = StepConfig(crop_hw=(64, 128), beta=0.4, tgt_stats_forward=stage != "selftrain",
-                     with_sharpness=stage != "dg", compute_dtype=torch.float32)
-    build = {"warmup": build_warmup_step, "dg": build_dg_step,
+                     with_sharpness=stage != "dg", compute_dtype=torch.float32, **semiseg)
+    build = {"warmup": build_dg_step if hrnet else build_warmup_step, "dg": build_dg_step,
              "selftrain": build_selftrain_step}[stage]
     return state, build(cfg, poly_schedule(2.5e-4, 100))
 
 
-def phase_steps_gpu_vs_cpu(stage: str) -> None:
+def phase_steps_gpu_vs_cpu(stage: str, hrnet: bool = False) -> None:
     """3 tiny steps of ``stage`` on the card against the CPU, same inputs and
     draws: losses at 1e-4 relative, ``consensus_kept`` within 1e-3,
     parameters within 1e-5, BN running statistics within 1e-4 + 1e-3 x
-    |value|, centroid vectors within 1e-5 + 1e-4 x |value| and counts equal."""
+    |value|, centroid vectors within 1e-5 + 1e-4 x |value| and counts equal.
+    ``hrnet``: the tiny HRNet+OCR in the semiseg recipe (``tiny_train``)."""
     prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         torch.manual_seed(SEED + 3)
-        model_sd = DeepLabV2(19, (1, 1, 1, 1), droprate=0.0).state_dict()
+        model_sd = tiny_model(hrnet).state_dict()
         translator_sd = {"enc_s": ImgEncoder(dim=16, n_res=1).state_dict(),
                          "dec_s2t": ImgDecoder(dim=64, n_res=1).state_dict()}
         rng = np.random.default_rng(SEED + 4)
-        centroids = Centroids(torch.from_numpy(rng.normal(size=(19, 256)).astype(np.float32) * 0.1),
-                              torch.full((19,), 150.0))
+        feat_dim = TINY_HRNET["ocr_mid_channels"] if hrnet else 256
+        centroids = Centroids(
+            torch.from_numpy(rng.normal(size=(19, feat_dim)).astype(np.float32) * 0.1),
+            torch.full((19,), 150.0))
         card, host = DEVICE.type, "cpu"
-        runs = {dev: tiny_train(stage, dev, model_sd, translator_sd, centroids)
+        runs = {dev: tiny_train(stage, dev, model_sd, translator_sd, centroids, hrnet)
                 for dev in (host, card)}
         gen = torch.Generator().manual_seed(SEED + 5)
         losses = {dev: [] for dev in runs}
@@ -806,7 +860,7 @@ def phase_steps_gpu_vs_cpu(stage: str) -> None:
                      "s_lbl": lbl,
                      "t_img": (rng.normal(size=(2, 64, 128, 3)) * 0.5).astype(np.float32)}
             draws = {"photometric_draws": P.draw(gen, 2)}
-            if stage != "dg":
+            if stage != "dg" and not hrnet:
                 draws["selection"] = mixing.sample_half_classes(torch.from_numpy(lbl), gen, 19)
             if stage == "selftrain":
                 pseudo = rng.choice(rng.choice(19, size=3, replace=False), size=(2, 64, 128))
@@ -856,7 +910,8 @@ def phase_steps_gpu_vs_cpu(stage: str) -> None:
                      f" vs {[round(x['consensus_kept'], 6) for x in losses[host]]} (tol 1e-3), "
                      f"centroid counts equal ({float(c_host.counts.sum()):.0f} in all), vectors "
                      f"at {e_cent:.3f} of their tolerance")
-        print(f"{stage} gpu-vs-cpu layers=(1,1,1,1) crop 64x128 f32 tf32=off {TRAIN_STEPS} "
+        what = "tiny HRNet+OCR semiseg" if hrnet else "layers=(1,1,1,1)"
+        print(f"{stage} gpu-vs-cpu {what} crop 64x128 f32 tf32=off {TRAIN_STEPS} "
               f"steps: losses {[round(x['loss'], 6) for x in losses[card]]} vs "
               f"{[round(x['loss'], 6) for x in losses[host]]} (tol 1e-4 rel), params "
               f"max_abs_err {e_param:.3e} (tol 1e-5), running stats at {e_stat:.3f} of their "
@@ -953,12 +1008,15 @@ def phase_train_timing(preset: str, data_paths: dict, card: str, profile_dir: st
     out = {"ms_per_step": k, "ms_per_step_plain_distill": p, "peak_mem_GiB": peak_gb,
            metric: n_src / (k / 1e3)}
     n_tgt = batch["t_img"].shape[0] if "t_img" in batch else 0
-    print(f"train {cfg.stage} step R101 bf16 source {n_src} + target {n_tgt} imgs crop "
+    hrnet = cfg.extra.get("model") == "hrnet_ocr"
+    print(f"train {cfg.stage} step {'HRNet-W48+OCR' if hrnet else 'R101'} bf16 source {n_src} + "
+          f"target {n_tgt} imgs crop "
           f"{tuple(batch['s_img'].shape[1:3])}: ms/step distill=kernel {k:.2f} "
           f"{times['kernel']} distill=plain {p:.2f} {times['plain']} source imgs/s "
           f"{out[metric]:.2f} peak_mem_GiB={peak_gb:.2f} | card={card}", flush=True)
     if profile_dir:
-        out.update(profile_step(cfg.stage, state, step, batch, k, profile_dir))
+        out.update(profile_step(f"semiseg_{cfg.stage}" if hrnet else cfg.stage, state, step,
+                                batch, k, profile_dir))
     print(json.dumps({"metric": metric, "value": out[metric], "unit": "imgs/sec",
                       "ms_per_step": k, "peak_mem_GiB": peak_gb, "card": card}), flush=True)
     return out
@@ -999,7 +1057,7 @@ def kernel_counts(distill: int, gn: int) -> dict:
 
 
 def check_train_run(name: str, wd: str, result, keys, preset: str = PRESET,
-                    steps: int = TRAIN_STEPS) -> None:
+                    steps: int = TRAIN_STEPS, extra: dict | None = None) -> None:
     """Finite losses at the first logged step (the trainer logs every 50)
     and at the last step, then ``check_ckpt_final``."""
     with open(os.path.join(wd, "metrics.jsonl")) as f:
@@ -1009,21 +1067,23 @@ def check_train_run(name: str, wd: str, result, keys, preset: str = PRESET,
     for r in (recs[0], last):
         require(all(math.isfinite(r[k]) for k in keys), f"{name}: non-finite loss: {r}")
         require(0.0 <= r.get("consensus_kept", 0.0) <= 1.0, f"{name}: consensus_kept {r}")
-    check_ckpt_final(name, wd, preset, steps)
+    check_ckpt_final(name, wd, preset, steps, extra)
     print(f"main path {name} metrics: " + json.dumps([{k: r[k] for k in ("step", *keys)}
                                                       for r in (recs[0], last)]), flush=True)
 
 
-def check_ckpt_final(name: str, wd: str, preset: str, steps: int) -> None:
+def check_ckpt_final(name: str, wd: str, preset: str, steps: int,
+                     extra: dict | None = None) -> None:
     """With no eval there is no best ``weights``; the final state in
     ``ckpt_final`` is at step ``steps`` and its student.pth loads strictly
-    into ``preset``'s eval model."""
+    into ``preset``'s eval model (with the run's ``--extra`` entries)."""
     require(not os.path.exists(os.path.join(wd, "weights")),
             f"{name}: a run with no eval wrote {wd}/weights")
     final = os.path.join(wd, "ckpt_final")
     st = torch.load(os.path.join(final, "state.pth"), map_location="cpu")
     require(st["step"] == steps, f"{name}: ckpt_final at step {st['step']}, expected {steps}")
-    build_eval(get_preset(preset), final, DEVICE)
+    cfg = get_preset(preset)
+    build_eval(dataclasses.replace(cfg, extra={**cfg.extra, **(extra or {})}), final, DEVICE)
     print(f"{name}: no weights/ (no eval), ckpt_final at step {steps}, its student.pth loads "
           "strictly into the eval model", flush=True)
 
@@ -1100,12 +1160,12 @@ def check_pseudo_labels(pseudo: str, n: int, num_classes: int) -> None:
           flush=True)
 
 
-def check_centroids(cdir: str, cents, num_classes: int, what: str) -> None:
+def check_centroids(cdir: str, cents, num_classes: int, what: str, feat_dim: int = 256) -> None:
     vec = np.load(os.path.join(cdir, "feat_centroids.npy"))
-    require(vec.shape == (num_classes, 256) and np.isfinite(vec).all()
+    require(vec.shape == (num_classes, feat_dim) and np.isfinite(vec).all()
             and float(cents.counts.sum()) > 0,
             f"{what} centroids {vec.shape}, finite {np.isfinite(vec).all()}, counts {cents.counts}")
-    print(f"{what} centroids: ({num_classes}, 256) finite, classes observed "
+    print(f"{what} centroids: ({num_classes}, {feat_dim}) finite, classes observed "
           f"{int((cents.counts > 0).sum())}, counts {cents.counts.tolist()}", flush=True)
 
 
@@ -1188,9 +1248,10 @@ def phase_synthia_chain(work: str, val_paths: dict, gta_paths: dict) -> tuple[di
     result, counts["parity train_warm_up"] = run_path(
         "parity train_warm_up", train_warm_up.main,
         ["--preset", PRESET, "--parity", "--work_dir", wd, "--num_steps", str(PARITY_STEPS),
-         *gta], kernel_counts(PARITY_STEPS, 6 * PARITY_STEPS), (torch.float32, DISTILL_SHAPE))
+         "--extra", f"layers={json.dumps(PARITY_LAYERS)}", *gta],
+        kernel_counts(PARITY_STEPS, 6 * PARITY_STEPS), (torch.float32, DISTILL_SHAPE))
     check_train_run("parity train_warm_up", wd, result, ("loss", "loss_semseg", "loss_distil"),
-                    steps=PARITY_STEPS)
+                    steps=PARITY_STEPS, extra={"layers": PARITY_LAYERS})
     return counts, paths
 
 
@@ -1372,6 +1433,157 @@ def phase_resume(work: str, gta_paths: dict) -> dict:
     return counts
 
 
+def hrnet_ocr_gmacs(hw=(512, 1024)) -> float:
+    """Multiply-accumulates (G) of one HRNet-W48+OCR forward on one image of
+    ``hw``, counted from the code: every convolution's, by forward hooks on a
+    CPU run at 1/8 of ``hw`` scaled by 64 (each branch's size divides
+    exactly), plus the OCR head's three attention products at 1/4 scale
+    (region representations K·P·512, similarities and their value product
+    P·256·K each, P the 1/4-scale pixels)."""
+    model = HRNetOCR(19).eval()
+    macs = [0]
+
+    def hook(mod, inp, out):
+        macs[0] += out.numel() * (mod.in_channels // mod.groups) * math.prod(mod.kernel_size)
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    with torch.inference_mode():
+        model(torch.zeros(1, 3, hw[0] // 8, hw[1] // 8).to(memory_format=torch.channels_last))
+    for h in hooks:
+        h.remove()
+    p = hw[0] // 4 * hw[1] // 4
+    return (macs[0] * 64 + 19 * p * 512 + 2 * p * 256 * 19) / 1e9
+
+
+def semiseg_floor_ms(gmacs: float, stage: str) -> float:
+    """The compute floor of one semiseg step at 989 TFLOP/s dense bf16: a
+    forward is ``gmacs`` per image, a forward with its backward three times
+    that.  Warm-up: the teacher on 6 images, the student on 6 with its
+    backward, the target-stats forward on 3 (all but the classifier):
+    27 forwards.  Self-training: the teacher on 6 and 3, the student on 6 and
+    3 with their backward: 36."""
+    forwards = 27 if stage == "warmup" else 36
+    return 2 * gmacs * 1e9 * forwards / BF16_FLOPS_PER_S * 1e3
+
+
+def phase_semiseg(work: str, card: str, profile_dir: str | None) -> dict:
+    """The semi-supervised Cityscapes chain at full width through the CLIs:
+    HRNet-W48+OCR, bf16, from a numpy-seeded student.pth; 1024x2048
+    Cityscapes fixtures split into a labeled source (2 images, their labels
+    through --target_lbl_list by position) and an unlabeled target (2
+    images), two val images.  train_warm_up (semiseg_1_8_warmup, 3 steps) ->
+    pseudolabel_generator (2 images) -> calc_centroids (one epoch, (19, 512))
+    -> train_self_training (semiseg_1_8_selftrain, 3 steps) -> evaluate_val
+    (2 images); then the warm-up and self-training steps timed as in phase 6,
+    and the eval's ms/img.  Returns the launch counts by path."""
+    t0 = time.perf_counter()
+    city, val_root = os.path.join(work, "city_semiseg"), os.path.join(work, "city_semiseg_val")
+    img_list, lbl_list = synthetic.make_cityscapes_fixture(city, n=4, h=OUT_HW[0], w=OUT_HW[1],
+                                                           split="train")
+    val_img, val_lbl = synthetic.make_cityscapes_fixture(val_root, n=N_IMAGES, h=OUT_HW[0],
+                                                         w=OUT_HW[1], split="val")
+    with open(img_list) as f:
+        imgs = f.read().split()
+    with open(lbl_list) as f:
+        lbls = f.read().split()
+    lists = {}
+    for key, names in (("source_list", imgs[:2]), ("target_lbl_list", lbls[:2]),
+                       ("target_img_list", imgs[2:])):
+        lists[key] = os.path.join(work, f"semiseg_{key}.txt")
+        with open(lists[key], "w") as f:
+            f.write("\n".join(names) + "\n")
+    paths = {"source_root": city, "target_root": city, **lists}
+    data = data_args(paths)
+    init = os.path.join(work, "semiseg_init")
+    export_role_keyed(init, {"student": seeded_state_dict(HRNetOCR(19), SEED + 10)})
+    print(f"semiseg path setup (Cityscapes 1024x2048 fixtures, seeded HRNet-W48+OCR "
+          f"student.pth): {time.perf_counter() - t0:.1f} s", flush=True)
+    gmacs = hrnet_ocr_gmacs()
+    print(f"semiseg compute floor: HRNet-W48+OCR forward {gmacs:.1f} GMAC per 512x1024 image; "
+          f"warm-up step {semiseg_floor_ms(gmacs, 'warmup'):.2f} ms, self-training step "
+          f"{semiseg_floor_ms(gmacs, 'selftrain'):.2f} ms at {BF16_FLOPS_PER_S / 1e12:.0f} "
+          "TFLOP/s dense bf16", flush=True)
+    counts = {}
+    site = (torch.bfloat16, DISTILL_SEMISEG_SHAPE)
+
+    wd = os.path.join(work, "semiseg_warmup")
+    result, counts["semiseg train_warm_up"] = run_path(
+        "semiseg train_warm_up", train_warm_up.main,
+        ["--preset", SEMISEG_WARMUP_PRESET, "--work_dir", wd, "--num_steps", str(TRAIN_STEPS),
+         "--load_weight_dir", init, *data],
+        kernel_counts(2 * TRAIN_STEPS, 0), site)  # the logits' and the OCR aux logits'
+    check_train_run("semiseg train_warm_up", wd, result, ("loss", "loss_semseg", "loss_distil"),
+                    preset=SEMISEG_WARMUP_PRESET)
+    warm = os.path.join(wd, "ckpt_final")
+
+    pseudo = os.path.join(city, PSEUDO_DIR)
+    n, counts["semiseg pseudolabel_generator"] = run_path(
+        "semiseg pseudolabel_generator", pseudolabel_generator.main,
+        ["--preset", SEMISEG_WARMUP_PRESET, "--weight_dir", warm, "--output_dir", pseudo, *data],
+        kernel_counts(0, 0))
+    check_pseudo_labels(pseudo, n, 19)
+
+    cdir = os.path.join(work, "semiseg_centroids")
+    cents, counts["semiseg calc_centroids"] = run_path(
+        "semiseg calc_centroids", calc_centroids.main,
+        ["--preset", SEMISEG_WARMUP_PRESET, "--weight_dir", warm, "--centroid_dir", cdir,
+         "--epochs", "1", *data], kernel_counts(0, 0))
+    check_centroids(cdir, cents, 19, "semiseg target", feat_dim=512)
+    centroid_path = os.path.join(cdir, "feat_centroids.npy")
+
+    wd = os.path.join(work, "semiseg_selftrain")
+    result, counts["semiseg train_self_training"] = run_path(
+        "semiseg train_self_training", train_self_training.main,
+        ["--preset", SEMISEG_SELFTRAIN_PRESET, "--work_dir", wd, "--num_steps", str(TRAIN_STEPS),
+         "--load_weight_dir", warm, "--centroid_path", centroid_path, *data],
+        kernel_counts(TRAIN_STEPS, 0), site)
+    check_train_run("semiseg train_self_training", wd, result,
+                    ("loss", "loss_semseg", "loss_crossmix", "loss_distil", "consensus_kept"),
+                    preset=SEMISEG_SELFTRAIN_PRESET)
+    final = os.path.join(wd, "ckpt_final")
+
+    dump = os.path.join(work, "semiseg_preds")
+    results, counts["semiseg evaluate_val"] = run_path(
+        "semiseg evaluate_val", evaluate_val.main,
+        ["--preset", SEMISEG_SELFTRAIN_PRESET, "--weight_dir", final, "--eval_limit",
+         str(N_IMAGES), "--target_root", val_root, "--val_img_list", val_img, "--val_lbl_list",
+         val_lbl, "--dump_preds", dump], kernel_counts(0, 0))
+    scores = results.get("cityscapes", {})
+    require(0.0 <= scores.get("mean_iou", -1.0) <= 1.0, f"semiseg evaluate_val: {results}")
+    print("semiseg eval scores: " + json.dumps({k: float(v) for k, v in scores.items()}),
+          flush=True)
+    eval_apply, _ = build_eval(get_preset(SEMISEG_SELFTRAIN_PRESET), final, DEVICE)
+    img, lbl = check_outputs(eval_apply, {"root": val_root, "val_img": val_img,
+                                          "val_lbl": val_lbl, "dump": dump})
+    for _ in range(2):  # warm-up: cuDNN set-up, allocator
+        eval_ms_per_img(eval_apply, img, lbl, 1)
+    torch.cuda.reset_peak_memory_stats()
+    times = [eval_ms_per_img(eval_apply, img, lbl, 5) for _ in range(2)]
+    ms = float(np.mean(times))
+    print(f"eval two-scale HRNet-W48+OCR bf16 batch 1 {OUT_HW[0]}x{OUT_HW[1]}+{DS_HW[0]}x"
+          f"{DS_HW[1]}: ms/img {ms:.2f} {times} peak_mem_MiB="
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} | card={card}", flush=True)
+    if profile_dir:
+        phase_profile(eval_apply, img, lbl, ms, profile_dir, name="semiseg_eval")
+    del eval_apply, img, lbl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for preset, kw in ((SEMISEG_WARMUP_PRESET, {"load_weight_dir": init}),
+                       (SEMISEG_SELFTRAIN_PRESET, {"load_weight_dir": warm,
+                                                   "centroid_path": centroid_path})):
+        out = phase_train_timing(preset, paths, card, profile_dir, **kw)
+        stage = get_preset(preset).stage
+        floor = semiseg_floor_ms(gmacs, stage)
+        print(f"semiseg {stage} step: {out['ms_per_step']:.2f} ms against its compute floor "
+              f"{floor:.2f} ms ({floor / out['ms_per_step']:.3f} of it) | card={card}",
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
+
+
 class Tee(io.TextIOBase):
     """A text stream that writes to each of ``streams``."""
 
@@ -1460,13 +1672,20 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=str, default=None,
                     help="directory for torch.profiler tables and traces of one eval and "
-                         "one warm-up, self-training, DG and translator step")
+                         "one warm-up, self-training, DG and translator step, and of the "
+                         "semiseg eval, warm-up and self-training step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs on the card",
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - t_lap[0]:.1f} s", flush=True)
+        t_lap[0] = now
 
     # 1. device
     card = card_line()
@@ -1475,12 +1694,17 @@ def main(argv=None) -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     # 2. build
     phase_build()
+    lap("2 build")
     # 3. kernels against their plain versions
     errs = {**phase_kernels_vs_plain(), **phase_distill_vs_plain()}
+    lap("3 checks")
     # 4. tiny models on the card against the CPU
     phase_model_gpu_vs_cpu()
     for stage in ("warmup", "dg", "selftrain"):
         phase_steps_gpu_vs_cpu(stage)
+    for stage in ("warmup", "selftrain"):
+        phase_steps_gpu_vs_cpu(stage, hrnet=True)
+    lap("4 tiny card vs CPU")
     counts = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         # 5. main path: the eval
@@ -1494,6 +1718,7 @@ def main(argv=None) -> int:
         del eval_apply, eval_model, img, lbl
         gc.collect()
         torch.cuda.empty_cache()
+        lap("5 eval")
         # 6. main path: the warm-up train step
         counts["train_warm_up"], data_paths = phase_train_main_path(work)
         gc.collect()
@@ -1501,6 +1726,7 @@ def main(argv=None) -> int:
         phase_train_timing(PRESET, data_paths, card, args.profile)
         gc.collect()
         torch.cuda.empty_cache()
+        lap("6 warm-up")
         # 7. main paths: the self-training chain and DG
         chain_counts, chain = phase_chain_main_paths(work, data_paths)
         counts.update(chain_counts)
@@ -1516,6 +1742,7 @@ def main(argv=None) -> int:
         phase_train_timing(DG_PRESET, chain["data"], card, args.profile)
         gc.collect()
         torch.cuda.empty_cache()
+        lap("7 self-training chain, DG")
         # 8. main paths: SYNTHIA->Cityscapes and a --parity warm-up
         synthia_counts, synthia_paths = phase_synthia_chain(work, paths, data_paths)
         counts.update(synthia_counts)
@@ -1524,20 +1751,31 @@ def main(argv=None) -> int:
         phase_train_timing(SYNTHIA_PRESET, synthia_paths, card, None)
         gc.collect()
         torch.cuda.empty_cache()
+        lap("8 SYNTHIA, --parity")
         # 8b. main paths: the translator stage and the resume
         counts.update(phase_translator(work, data_paths, synthia_paths, card, args.profile))
         gc.collect()
         torch.cuda.empty_cache()
         counts.update(phase_resume(work, data_paths))
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("8b translator, resume")
+        # 8c. main paths: the semi-supervised Cityscapes chain (HRNet-W48+OCR)
+        counts.update(phase_semiseg(work, card, args.profile))
+        lap("8c semiseg")
     gc.collect()
     torch.cuda.empty_cache()
     # 9. kernel timing and the record lines
     per_kernel = {**phase_gn_timing(card), **phase_distill_timing(card)}
+    lap("9 kernel timing")
     for path, c in counts.items():
-        if path in TRANSLATOR_PATHS:  # no TPU kernel on the translator stage (run_path holds 0)
+        # no TPU kernel on the translator stage, nor on HRNet+OCR's eval
+        # paths (run_path holds them at 0)
+        if path in TRANSLATOR_PATHS + SEMISEG_EVAL_PATHS:
             continue
         used = [k for k, (_, src, _) in TPU_KERNELS.items()
-                if path in TRAIN_PATHS or src.endswith("group_norm.cu")]
+                if (src.endswith("distill.cu") and path in TRAIN_PATHS + SEMISEG_TRAIN_PATHS)
+                or (src.endswith("group_norm.cu") and path not in SEMISEG_TRAIN_PATHS)]
         require(all(c[k] > 0 for k in used), f"a kernel of the {path} path never launched: {c}")
     kernels = []
     for kname, (kid, source, replaces) in TPU_KERNELS.items():

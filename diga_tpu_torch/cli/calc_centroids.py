@@ -5,11 +5,17 @@ calc_centroids.py:17-81: several epochs over the target train set (the
 default, after the warm-up) or, with ``--source``, over the GTA5 or
 SYNTHIA source set mixed by the frozen translator and CrDoMix with its
 labels, accumulating per-class masked feature means with 'mean' updates.
-The model is ``build_eval``'s frozen eval model (GroupNorm on the kernel
-B2a/B2b on the card); the centroids stay on the device until they are
-saved.  The
-CrDoMix selections come from a ``torch.Generator`` seeded with the
-preset's seed.
+The model is ``build_eval``'s frozen eval model (DeepLab's GroupNorm on the
+kernel B2a/B2b on the card; HRNet+OCR for the semi-supervised presets,
+whose centroids are 512-d); the centroids stay on the device until they
+are saved.  The CrDoMix selections come from a ``torch.Generator`` seeded
+with the preset's seed.
+
+As in the JAX CLI (:42-46), the model sees the image as the dataset gives
+it, BGR, even for an ``rgb_input`` preset, unlike the eval and the
+pseudo-labels (ROADMAP question D3).  ``--source`` on a Cityscapes source
+(the semi-supervised presets) is refused: the JAX CLI runs the translator
+there on a state that has none (``train/build.py:170-174``) and fails.
 
 Writes ``feat_centroids.npy`` and, for the reference, the torch tensor
 file ``feat_centroids``.
@@ -49,16 +55,18 @@ def main(argv=None):
     refuse_multi_device(p, args)
     device = resolve_device(args.device)
     cfg = get_config(args)
+    spec = cfg.data.source_streams[0]
+    sources = {"gta5": gta5_dataset, "synthia": synthia_dataset}
+    if args.source and spec.kind not in sources:
+        p.error(f"--source on a {spec.kind!r} source: preset {cfg.name} has no image "
+                "translator, and the reference --source path mixes the source through one "
+                "(the JAX package's calc_centroids --source fails on it too); compute "
+                "the centroids on the target, without --source")
     _, model = build_eval(cfg, args.weight_dir, device)
     k = cfg.train.num_classes
     cents = Centroids.create(k, cfg.extra.get("feat_dim", 256), device)
 
     if args.source:
-        spec = cfg.data.source_streams[0]
-        sources = {"gta5": gta5_dataset, "synthia": synthia_dataset}
-        if spec.kind not in sources:
-            p.error(f"--source on a {spec.kind!r} source is not ported yet "
-                    "(semiseg: ROADMAP queue A item 14)")
         ds = sources[spec.kind](cfg.data.source_root, cfg.data.source_list,
                                 resize_hw=spec.resize_hw)
         translator = init_translator_frozen(cfg, args.weight_dir, device).requires_grad_(False)

@@ -8,11 +8,13 @@ each new best mIoU writes ``<work_dir>/weights`` and ``<work_dir>/ckpt_best``,
 the end writes ``<work_dir>/ckpt_final``, and ``--resume`` continues from
 ``<work_dir>/ckpt_final`` where one exists.  ``--pretrained_backbone PATH``
 lays a reference ResNet-101 ``.pth`` (the Caffe init, or a
-``state_dict``-wrapped checkpoint) over the backbone.  Refused, with a
-message: ``--pretrained_backbone auto`` (it downloads; the port fetches
-nothing), the multi-device flags, the translator stage (its CLI is
-``train_domain_translator``), and the step options that are not ported
-(``--extra fuse_forwards``, the semiseg knobs).
+``state_dict``-wrapped checkpoint) over DeepLab's backbone, or an ImageNet
+hrnetv2 ``.pth`` over HRNet's (the semi-supervised presets).  Refused,
+with a message: ``--pretrained_backbone auto`` (it downloads; the port
+fetches nothing), the multi-device flags, the translator stage (its CLI
+is ``train_domain_translator``), the step option that is not ported
+(``--extra fuse_forwards``) and the JAX HRNet's TPU knobs (``--extra
+hrnet_pad``, ``remat_policy``, ``remat``).
 
 Usage:
   python -m diga_tpu_torch.cli.train_warm_up --preset gta2city_warmup \\
@@ -23,6 +25,10 @@ Usage:
       --centroid_path ./work_dir/centroids/feat_centroids.npy ...
   python -m diga_tpu_torch.cli.train_warm_up --preset synthia2city_warmup \\
       --source_root ./data/SYNTHIA --target_root ./data/Cityscapes ...
+  python -m diga_tpu_torch.cli.train_warm_up --preset semiseg_1_8_warmup \\
+      --source_root ./data/Cityscapes --source_list <labeled images> \\
+      --target_lbl_list <their labels, in the same order> \\
+      --target_root ./data/Cityscapes --target_img_list <unlabeled images> ...
   (``--parity`` on any of them: f32 and the kornia photometric chain;
   ``--resume`` continues a run in the same ``--work_dir``)
 """
@@ -32,7 +38,8 @@ from __future__ import annotations
 import os
 
 from .. import resolve_device
-from ..train.build import TRAIN_STAGES, build_experiment, make_step_config
+from ..train.build import (TRAIN_STAGES, build_experiment, check_model_config,
+                           make_step_config)
 from ..train.loop import run_training
 from ..utils.checkpoint import restore_train_state, save_train_state
 from .common import base_parser, get_config, refuse_multi_device
@@ -47,8 +54,8 @@ def main(argv=None, force_stage: str | None = None):
                         "torch-saved tensor, e.g. calc_centroids' output)")
     p.add_argument("--pretrained_backbone", type=str, default=None,
                    help="backbone init .pth: the Caffe ResNet-101 (raw ResNetMulti keys), or "
-                        "a SegModel-layout or state_dict-wrapped checkpoint; 'auto' (a "
-                        "download) is refused")
+                        "a SegModel-layout or state_dict-wrapped checkpoint; for HRNet the "
+                        "ImageNet hrnetv2 file; 'auto' (a download) is refused")
     p.add_argument("--save_every", type=int, default=2000,
                    help="periodic full-state checkpoint to <work_dir>/ckpt_final (0 = off)")
     p.add_argument("--resume", action="store_true",
@@ -67,6 +74,7 @@ def main(argv=None, force_stage: str | None = None):
                 "translator stage is python -m diga_tpu_torch.cli.train_domain_translator")
     try:
         make_step_config(cfg)
+        check_model_config(cfg)
     except (NotImplementedError, ValueError) as e:
         p.error(str(e))
     device = resolve_device(args.device)

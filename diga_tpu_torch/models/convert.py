@@ -22,6 +22,14 @@ translator's parameters become the six reference role state_dicts, which
 the port's ``ImgEncoder``/``ImgDecoder``/``Discriminator`` load with
 ``strict=True``.  ``pretrained_backbone_state_dict`` lays a reference
 ResNet-101 ``.pth`` over a fresh DeepLabV2 (``--pretrained_backbone``).
+
+``hrnet_state_dict_from_jax`` is the port's own copy of
+``diga_tpu/models/convert_hrnet.py::hrnet_ocr_to_torch`` (:203-290): the JAX
+HRNet+OCR's parameters and batch statistics in the reference SegModel
+layout (``hrnet.*``, ``ocrnet.*``), which ``HRNetOCR`` loads with
+``strict=True``; it lists the keys in ``HRNetOCR.state_dict()``'s order.
+``hrnet_imagenet_state_dict`` is the port's copy of ``hrnet_imagenet_init``
+(:146-200), the ImageNet hrnetv2 init of ``--pretrained_backbone``.
 """
 
 from __future__ import annotations
@@ -179,6 +187,134 @@ def pretrained_backbone_state_dict(model: torch.nn.Module,
             raise ValueError(f"{k}: {tuple(src[k].shape)} in the file, {tuple(own[k].shape)} "
                              "in the model")
         out[k] = src[k].to(own[k].dtype)
+    return out
+
+
+def hrnet_state_dict_from_jax(params: dict, batch_stats: dict,
+                              arch: dict) -> dict[str, torch.Tensor]:
+    """The JAX HRNetOCR's (params, batch_stats) as the reference state_dict.
+
+    The JAX ConvBN's conv has no bias; the reference keeps one on two OCR
+    convs before a BN, which the JAX converter emits as zeros (the port's
+    ``BufferBiasConv2d``), here next to its conv's weight."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def put_convbn(conv_key, bn_key, pnode, snode, conv_bias=False):
+        kernel = np.asarray(pnode["conv"]["kernel"])
+        sd[conv_key + ".weight"] = _tensor(kernel.transpose(3, 2, 0, 1))
+        if conv_bias:
+            sd[conv_key + ".bias"] = torch.zeros(kernel.shape[-1])
+        sd[bn_key + ".weight"] = _tensor(pnode["bn"]["scale"])
+        sd[bn_key + ".bias"] = _tensor(pnode["bn"]["bias"])
+        sd[bn_key + ".running_mean"] = _tensor(snode["bn"]["mean"])
+        sd[bn_key + ".running_var"] = _tensor(snode["bn"]["var"])
+
+    def put_seq(key, pnode, snode, conv_bias=False):
+        put_convbn(key + ".0", key + ".1", pnode, snode, conv_bias)
+
+    def put_conv(key, node):
+        sd[key + ".weight"] = _tensor(np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
+        sd[key + ".bias"] = _tensor(node["bias"])
+
+    hp, hs = params["hrnet"], batch_stats["hrnet"]
+    put_convbn("hrnet.conv1", "hrnet.bn1", hp["stem1"], hs["stem1"])
+    put_convbn("hrnet.conv2", "hrnet.bn2", hp["stem2"], hs["stem2"])
+    for i in range(arch["stage1_blocks"]):
+        base, blk = f"hrnet.stage1.{i}", f"stage1_block{i}"
+        for c in (1, 2, 3):
+            put_convbn(f"{base}.conv{c}", f"{base}.bn{c}", hp[blk][f"conv{c}"], hs[blk][f"conv{c}"])
+        if "downsample" in hp[blk]:
+            put_seq(f"{base}.downsample", hp[blk]["downsample"], hs[blk]["downsample"])
+    prev = 1
+    for si, (num_modules, num_blocks, channels) in enumerate(arch["stages"], start=2):
+        trans = f"hrnet.transition_stage_{si - 1}_{si}"
+        for i in range(len(channels)):
+            if i < prev:
+                if f"trans{si}_{i}" in hp:
+                    put_seq(f"{trans}.{i}", hp[f"trans{si}_{i}"], hs[f"trans{si}_{i}"])
+            else:
+                for j in range(i + 1 - prev):
+                    put_seq(f"{trans}.{i}.{j}", hp[f"trans{si}_{i}_{j}"], hs[f"trans{si}_{i}_{j}"])
+        for m in range(num_modules):
+            mbase = f"hrnet.stage{si}.{m}"
+            mp, ms = hp[f"stage{si}_module{m}"], hs[f"stage{si}_module{m}"]
+            for bi in range(len(channels)):
+                for k in range(num_blocks):
+                    blk, bp, bs = (f"{mbase}.branches.{bi}.{k}", mp[f"branch{bi}_block{k}"],
+                                   ms[f"branch{bi}_block{k}"])
+                    for c in (1, 2):
+                        put_convbn(f"{blk}.conv{c}", f"{blk}.bn{c}", bp[f"conv{c}"], bs[f"conv{c}"])
+                    if "downsample" in bp:
+                        put_seq(f"{blk}.downsample", bp["downsample"], bs["downsample"])
+            for i in range(len(channels)):
+                for j in range(len(channels)):
+                    if j > i:
+                        put_seq(f"{mbase}.fuse_layers.{i}.{j}", mp[f"fuse{i}_{j}"],
+                                ms[f"fuse{i}_{j}"])
+                    for k in range(i - j):
+                        put_seq(f"{mbase}.fuse_layers.{i}.{j}.{k}", mp[f"fuse{i}_{j}_{k}"],
+                                ms[f"fuse{i}_{j}_{k}"])
+        prev = len(channels)
+
+    op, os_ = params["ocr"], batch_stats["ocr"]
+    put_seq("ocrnet.pixel_representations", op["pixel_rep"], os_["pixel_rep"], conv_bias=True)
+    put_seq("ocrnet.soft_object_regions", op["region_conv"], os_["region_conv"], conv_bias=True)
+    put_conv("ocrnet.soft_object_regions.3", op["region_cls"])
+    for tname, fname in (("pixel_rep", "query"), ("obj_reg_rep", "key")):
+        rel = f"ocrnet.pixel_region_relations.{tname}"
+        put_convbn(f"{rel}.0", f"{rel}.1", op[f"{fname}_a"], os_[f"{fname}_a"])
+        put_convbn(f"{rel}.3", f"{rel}.4", op[f"{fname}_b"], os_[f"{fname}_b"])
+    put_seq("ocrnet.value", op["value"], os_["value"])
+    put_seq("ocrnet.ocr_up", op["ocr_up"], os_["ocr_up"])
+    put_seq("ocrnet.augmented_rep", op["augment"], os_["augment"])
+    put_conv("ocrnet.segmentation_classes.0", op["cls"])
+    return sd
+
+
+_TENSOR_KINDS = ("weight", "bias", "running_mean", "running_var")
+
+
+def hrnet_imagenet_state_dict(model: torch.nn.Module,
+                              pretrained_sd: dict) -> dict[str, torch.Tensor]:
+    """``model``'s state_dict with an ImageNet hrnetv2 checkpoint laid over
+    its backbone.
+
+    The reference pairs the checkpoint's tensors with the backbone's by
+    position (hrnet_module.py:573-584), so this does: the model's
+    ``hrnet.*`` tensors in registration order against the checkpoint's,
+    after stripping a DataParallel ``module.`` prefix and dropping
+    ``num_batches_tracked``; the zip stops where either ends (the ImageNet
+    classifier trails the backbone).  The OCR head keeps its init.  Raises
+    a ``RuntimeError``, as the JAX ``hrnet_imagenet_init`` does, where a
+    checkpoint with standard names does not start at ``conv1.weight`` or
+    is shorter than the backbone, and where a pair differs in shape or, for
+    a checkpoint key with a tensor-kind suffix, in that suffix.
+    """
+    out = dict(model.state_dict())
+    back_keys = [k for k in out if k.startswith("hrnet.") and not k.endswith("num_batches_tracked")]
+    pre_items = [(k[7:] if k.startswith("module.") else k, torch.as_tensor(v))
+                 for k, v in pretrained_sd.items() if "num_batches_tracked" not in k]
+    if pre_items and pre_items[0][0].split(".")[0].startswith("conv"):
+        if pre_items[0][0] != "conv1.weight":
+            raise RuntimeError(
+                f"hrnet ImageNet init: checkpoint's first tensor is {pre_items[0][0]!r}, "
+                "expected 'conv1.weight' — wrong or reordered checkpoint")
+        if len(pre_items) < len(back_keys):
+            raise RuntimeError(
+                f"hrnet ImageNet init: checkpoint has {len(pre_items)} tensors < backbone's "
+                f"{len(back_keys)} — truncated dump")
+    for ours, (pk, pv) in zip(back_keys, pre_items):
+        if tuple(out[ours].shape) != tuple(pv.shape):
+            raise RuntimeError(
+                f"hrnet ImageNet init: shape mismatch at {ours} <- {pk}: "
+                f"{tuple(out[ours].shape)} vs {tuple(pv.shape)} — pretrained weights could not "
+                "be correctly loaded")
+        suffix = pk.rsplit(".", 1)[-1]
+        if suffix in _TENSOR_KINDS and suffix != ours.rsplit(".", 1)[-1]:
+            raise RuntimeError(
+                f"hrnet ImageNet init: positional pairing misaligned at {ours} <- {pk} "
+                "(tensor-kind suffix mismatch)")
+        out[ours] = pv.to(out[ours].dtype)
     return out
 
 

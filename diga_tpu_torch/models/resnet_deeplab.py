@@ -17,7 +17,8 @@ SegModel over model/seg_model_noaux.py, the keys
     branches, each conv + GroupNorm(32) + ReLU; concat -> SE -> 3x3 conv
     + GroupNorm; channel dropout (0.1) + 1x1 classifier without bias
   * ``forward`` returns (shallow, deep, logits, feat); ``backbone`` runs
-    layer0..layer4 only
+    layer0..layer4 only, and is ``bn_stats_forward``: the ASPP head has no
+    BN, so the backbone is every BN statistic a train-mode forward updates
 
 Training (reference seg_model_noaux.py:62-76,223-225): the BN affine is
 frozen (``requires_grad=False``, left out of the optimizer) while BN keeps
@@ -200,6 +201,10 @@ class DeepLabV2(nn.Module):
     def compute_dtype(self) -> torch.dtype:
         return self.layer0[0].weight.dtype
 
+    @property
+    def channel_dropout(self) -> ChannelDropout:
+        return self.final.head[0]
+
     def set_compute_dtype(self, dtype: torch.dtype) -> "DeepLabV2":
         """Cast convs and linears to ``dtype``; norms keep f32 parameters."""
         for m in self.modules():
@@ -212,6 +217,9 @@ class DeepLabV2(nn.Module):
         x = self.layer0(x.to(self.compute_dtype))
         shallow = self.layer2(self.layer1(x))
         return shallow, self.layer4(self.layer3(shallow))
+
+    def bn_stats_forward(self, x: torch.Tensor) -> None:
+        self.backbone(x)
 
     def forward(self, x: torch.Tensor):
         """``x``: NCHW image batch (channels_last); outputs in the compute dtype."""

@@ -1,12 +1,14 @@
 """Assemble models, optimizer, state and the step from a preset config.
 
-Counterpart of ``diga_tpu/train/build.py``: ``make_model`` (:31-58),
+Counterpart of ``diga_tpu/train/build.py``: ``make_model`` (:31-58: DeepLabV2,
+or HRNet-W48/W32+OCR for the semi-supervised presets),
 ``make_schedule``/``make_step_config``/``wants_target`` (:61-108), the
 translator helpers (:111-140), ``build_experiment`` (:143-279) for the
 warm-up, DG and self-training stages, and ``export_state_role_keyed``
 (:289-313); previous-stage weights come from role-keyed ``.pth`` files,
-a reference ResNet-101 ``.pth`` initialises the backbone
-(``--pretrained_backbone``, :202-218), and the self-training centroids
+a reference ResNet-101 ``.pth`` (DeepLab) or an ImageNet hrnetv2 ``.pth``
+(HRNet) initialises the backbone (``--pretrained_backbone``, :202-218),
+and the self-training centroids
 come from ``calc_centroids``' output (reference stage chaining).  ``build_eval`` is
 the frozen eval model of ``evaluate_val``.
 
@@ -26,14 +28,16 @@ import torch
 import torch.nn as nn
 
 from ..configs.presets import ExperimentConfig
-from ..models.convert import load_torch_state_dict, pretrained_backbone_state_dict
+from ..models.convert import (hrnet_imagenet_state_dict, load_torch_state_dict,
+                              pretrained_backbone_state_dict)
+from ..models.hrnet_ocr import ARCHS, HRNetOCR
 from ..models.resnet_deeplab import DeepLabV2
 from ..models.translator import ImgDecoder, ImgEncoder
 from ..ops.prototypes import Centroids
 from ..utils.checkpoint import export_role_keyed, load_role_keyed
 from .optim import sgd_grouped
 from .schedules import poly_schedule, poly_warmup_schedule
-from .state import SegTrainState, create_seg_state, reference_state_dict
+from .state import SegModel, SegTrainState, create_seg_state, reference_state_dict
 from .steps import StepConfig, build_dg_step, build_selftrain_step, build_warmup_step
 
 
@@ -52,12 +56,36 @@ def seeded(seed: int):
         torch.random.set_rng_state(gen_state)
 
 
-def make_model(cfg: ExperimentConfig) -> DeepLabV2:
-    """DeepLabV2 at the preset's class count (``extra['layers']`` for tiny depths)."""
-    if cfg.extra.get("model", "deeplab") != "deeplab":
-        raise NotImplementedError(
-            f"model {cfg.extra['model']!r} is not ported yet (DeepLabV2 only; "
-            "HRNet is ROADMAP queue A item 14)")
+# the JAX HRNet's TPU memory and layout knobs (diga_tpu/models/hrnet_ocr.py
+# :68-181,293-318); an 80 GB card runs the model without them
+_HRNET_TPU_KNOBS = ("hrnet_pad", "remat_policy", "remat")
+
+
+def check_model_config(cfg: ExperimentConfig) -> None:
+    """Raise on a model choice the port does not build: an unknown model or
+    HRNet arch, or a TPU knob of the JAX HRNet."""
+    kind = cfg.extra.get("model", "deeplab")
+    if kind not in ("deeplab", "hrnet_ocr"):
+        raise ValueError(f"--extra model={kind!r}: expected 'deeplab' or 'hrnet_ocr'")
+    if kind == "hrnet_ocr":
+        for key in _HRNET_TPU_KNOBS:
+            if cfg.extra.get(key):
+                raise NotImplementedError(
+                    f"--extra {key} is a TPU memory/layout knob of the JAX HRNet and is not "
+                    "ported: the port runs HRNet-W48+OCR without it")
+        arch = cfg.extra.get("hrnet_arch", "w48")
+        if arch not in ARCHS:
+            raise ValueError(f"--extra hrnet_arch={arch!r}: expected one of {sorted(ARCHS)}")
+
+
+def make_model(cfg: ExperimentConfig) -> SegModel:
+    """The preset's model at its class count: DeepLabV2 (``extra['layers']``
+    for tiny depths), or HRNetOCR for ``extra['model'] == 'hrnet_ocr'``
+    (``extra['hrnet_arch']`` ``w48`` or ``w32``)."""
+    check_model_config(cfg)
+    if cfg.extra.get("model", "deeplab") == "hrnet_ocr":
+        return HRNetOCR(num_classes=cfg.train.num_classes,
+                        arch=ARCHS[cfg.extra.get("hrnet_arch", "w48")])
     layers = tuple(cfg.extra.get("layers", (3, 4, 23, 3)))
     return DeepLabV2(num_classes=cfg.train.num_classes, layers=layers)
 
@@ -71,7 +99,7 @@ def _use_benchmark_convs(device: torch.device) -> None:
         torch.backends.cudnn.benchmark = True
 
 
-def _eval_apply(model: DeepLabV2, rgb_input: bool, amp_dtype: torch.dtype | None) -> Callable:
+def _eval_apply(model: SegModel, rgb_input: bool, amp_dtype: torch.dtype | None) -> Callable:
     """``eval_apply(image_nhwc) -> logits_nhwc`` with ``model`` in eval mode
     for the call (a training model goes back to train mode after it)."""
 
@@ -95,7 +123,7 @@ def _eval_apply(model: DeepLabV2, rgb_input: bool, amp_dtype: torch.dtype | None
 
 
 def build_eval(cfg: ExperimentConfig, weight_dir: str | None,
-               device: torch.device) -> tuple[Callable, DeepLabV2]:
+               device: torch.device) -> tuple[Callable, SegModel]:
     """(eval_apply, model) of a frozen eval model.
 
     Weights come from ``<weight_dir>/student.pth``; with no ``weight_dir``
@@ -123,8 +151,6 @@ def make_schedule(cfg: ExperimentConfig) -> Callable[[int], float]:
 
 # extra knobs of the JAX StepConfig whose code paths are not ported yet
 _NOT_PORTED = {
-    "aux_weight": "HRNet/semiseg, ROADMAP queue A item 14",
-    "rgb_input": "HRNet/semiseg, ROADMAP queue A item 14",
     "fuse_forwards": "the self-training throughput mode, not parity-exact, ROADMAP queue A "
                      "item 9",
 }
@@ -141,9 +167,6 @@ def make_step_config(cfg: ExperimentConfig) -> StepConfig:
     for key, where in _NOT_PORTED.items():
         if cfg.extra.get(key):
             raise NotImplementedError(f"--extra {key} is not ported yet ({where})")
-    if cfg.stage == "selftrain" and cfg.extra.get("no_translator"):
-        raise NotImplementedError("self-training without the translator (semiseg) is not "
-                                  "ported yet (ROADMAP queue A item 14)")
     return StepConfig(
         num_classes=t.num_classes,
         crop_hw=tuple(t.crop_hw),
@@ -159,6 +182,10 @@ def make_step_config(cfg: ExperimentConfig) -> StepConfig:
         # the reference warm-up/DG no-grad student(target) forward; on by
         # default for parity, --extra tgt_stats_forward=false drops it
         tgt_stats_forward=cfg.extra.get("tgt_stats_forward", cfg.stage in ("warmup", "dg")),
+        # semiseg: 0.1x aux term, RGB input, no translator (:77-79)
+        aux_weight=cfg.extra.get("aux_weight", 0.0),
+        rgb_input=cfg.extra.get("rgb_input", False),
+        use_crdomix=not cfg.extra.get("no_translator", False),
         compute_dtype=compute_dtype(cfg),
     )
 
@@ -215,14 +242,17 @@ def build_experiment(cfg: ExperimentConfig, device: torch.device,
     """(state, step, eval_apply) for the warm-up, DG or self-training stage.
 
     The student starts from a random init drawn from ``cfg.train.seed``,
-    with the backbone (and a matching head) of the ``pretrained_backbone``
-    file laid over it; a previous stage's ``<load_weight_dir>/student.pth``
-    replaces both.  The teacher starts as a copy of the student.
+    with the backbone (and, for DeepLab, a matching head) of the
+    ``pretrained_backbone`` file laid over it; a previous stage's
+    ``<load_weight_dir>/student.pth`` replaces both.  The teacher starts as
+    a copy of the student.
 
     ``step(state, batch) -> metrics`` (``train/steps.py``): the DG step for
-    stage ``dg`` and for a warm-up with ``--extra no_translator``, else the
-    stage's own; ``eval_apply`` runs the student in eval mode under the
-    compute dtype's autocast.
+    stage ``dg`` and for a warm-up with ``--extra no_translator`` (the
+    semiseg warm-up), else the stage's own; the self-training step without
+    the translator takes the photometric view as its second view.
+    ``eval_apply`` runs the student in eval mode under the compute dtype's
+    autocast.
     """
     if cfg.stage not in TRAIN_STAGES:
         raise NotImplementedError(
@@ -234,8 +264,10 @@ def build_experiment(cfg: ExperimentConfig, device: torch.device,
     if pretrained_backbone is not None:
         if not os.path.exists(pretrained_backbone):
             raise FileNotFoundError(f"--pretrained_backbone {pretrained_backbone!r} does not exist")
-        student.load_state_dict(pretrained_backbone_state_dict(
-            student, load_torch_state_dict(pretrained_backbone)), strict=True)
+        lay_over = (hrnet_imagenet_state_dict if isinstance(student, HRNetOCR)
+                    else pretrained_backbone_state_dict)
+        student.load_state_dict(lay_over(student, load_torch_state_dict(pretrained_backbone)),
+                                strict=True)
     if load_weight_dir and os.path.exists(os.path.join(load_weight_dir, "student.pth")):
         student.load_state_dict(load_role_keyed(load_weight_dir, ["student"])["student"],
                                 strict=True)

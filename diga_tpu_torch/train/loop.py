@@ -52,9 +52,16 @@ def build_dataset(spec: LoaderSpec, data_cfg: DataConfig, crop_hw, is_source: bo
     """One stream's dataset with the stage's geometric augmentation (the
     source random-resizes, the target crops, random-resized in
     self-training; reference warm_up.py:97-103, self_training.py:110-115).
-    Sources: GTA5 and SYNTHIA; targets: Cityscapes, BDD and Mapillary.  A
-    Cityscapes target stream with ``use_pseudo`` also reads the pseudo-label
-    PNGs under ``<target_root>/<pseudo_dir>``."""
+    Sources: GTA5, SYNTHIA and, for the semi-supervised stages, the labeled
+    Cityscapes split; targets: Cityscapes, BDD and Mapillary.  A Cityscapes
+    target stream with ``use_pseudo`` also reads the pseudo-label PNGs
+    under ``<target_root>/<pseudo_dir>``.
+
+    A Cityscapes source (``diga_tpu/train/loop.py:57-70``) reads its images
+    from ``source_root``/``source_list`` and its labels from
+    ``source_lbl_list``, or where that is unset (no CLI flag sets it) from
+    ``target_lbl_list``, paired with the images by position, as the JAX
+    package does."""
     sized = data_cfg.source_sized_crop if is_source else data_cfg.target_sized_crop
     crop_cls = RandomSizedAndCrop if sized else RandomCrop
     kw = dict(resize_hw=tuple(spec.resize_hw),
@@ -63,7 +70,11 @@ def build_dataset(spec: LoaderSpec, data_cfg: DataConfig, crop_hw, is_source: bo
         return gta5_dataset(data_cfg.source_root, data_cfg.source_list, **kw)
     if spec.kind == "synthia":
         return synthia_dataset(data_cfg.source_root, data_cfg.source_list, **kw)
-    if spec.kind == "cityscapes" and not is_source:
+    if spec.kind == "cityscapes" and is_source:
+        return cityscapes_dataset(data_cfg.source_root, data_cfg.source_list,
+                                  data_cfg.source_lbl_list or data_cfg.target_lbl_list,
+                                  split=spec.split, **kw)
+    if spec.kind == "cityscapes":
         if spec.use_pseudo and data_cfg.pseudo_dir is None:
             raise ValueError("a pseudo-label target stream needs --pseudo_dir")
         return cityscapes_dataset(data_cfg.target_root, data_cfg.target_img_list,
@@ -74,10 +85,6 @@ def build_dataset(spec: LoaderSpec, data_cfg: DataConfig, crop_hw, is_source: bo
         make = bdd_dataset if spec.kind == "bdd" else mapillary_dataset
         return make(data_cfg.target_root, data_cfg.target_img_list, data_cfg.target_lbl_list,
                     **kw)
-    if spec.kind == "cityscapes":
-        raise NotImplementedError(
-            "Cityscapes as the source stream (semi-supervised) is not ported yet "
-            "(ROADMAP queue A item 14)")
     raise ValueError(f"unknown dataset kind {spec.kind!r}")
 
 

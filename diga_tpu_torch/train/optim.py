@@ -7,6 +7,9 @@ util/utils.py:36-48:
     ``head_mult`` x;
   * the backbone BN affine left out entirely (``requires_grad=False``), so
     it gets neither decay nor updates;
+  * HRNet+OCR has no ``final.*``: every parameter, BN affine included and
+    decayed, is in the 1x group, as ``head_param_mask`` labels only a
+    top-level ``head`` (``diga_tpu/models/resnet_deeplab.py:413-435``);
   * weight decay added to the gradient before the momentum buffer, which
     is what ``torch.optim.SGD`` does.
 The LR of a step is ``schedule(step)`` with the step taken before its

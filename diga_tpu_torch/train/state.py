@@ -23,14 +23,17 @@ import dataclasses
 import torch
 import torch.nn as nn
 
+from ..models.hrnet_ocr import HRNetOCR
 from ..models.resnet_deeplab import DeepLabV2
 from ..ops.prototypes import Centroids
+
+SegModel = DeepLabV2 | HRNetOCR
 
 
 @dataclasses.dataclass
 class SegTrainState:
-    student: DeepLabV2
-    teacher: DeepLabV2
+    student: SegModel
+    teacher: SegModel
     optimizer: torch.optim.Optimizer
     step: int
     gen_photometric: torch.Generator
@@ -87,15 +90,15 @@ def reference_state_dict(model: nn.Module) -> dict[str, torch.Tensor]:
 
 def attach_dropout_generators(state: "SegTrainState") -> None:
     """The head dropouts draw from the state's own generators."""
-    state.student.final.head[0].generator = state.gen_student_dropout
-    state.teacher.final.head[0].generator = state.gen_teacher_dropout
+    state.student.channel_dropout.generator = state.gen_student_dropout
+    state.teacher.channel_dropout.generator = state.gen_teacher_dropout
 
 
 def _generator(device: torch.device, seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def create_seg_state(student: DeepLabV2, optimizer: torch.optim.Optimizer, seed: int,
+def create_seg_state(student: SegModel, optimizer: torch.optim.Optimizer, seed: int,
                      translator: nn.ModuleDict | None = None,
                      centroids: Centroids | None = None) -> SegTrainState:
     """Teacher = a copy of the student (reference create_teacher_params,

@@ -3,8 +3,10 @@
 Counterpart of ``diga_tpu/train/steps.py``: ``build_dg_step`` (:120-191),
 ``build_warmup_step`` (:194-268) and ``build_selftrain_step`` (:271-402),
 with their ``StepConfig`` (:35-117).  Reference: train_DiGA_DG.py:188-275,
-train_DiGA_gta2city_warm_up.py:197-305 and
-train_DiGA_gta2city_self_training.py:214-387.
+train_DiGA_gta2city_warm_up.py:197-305,
+train_DiGA_gta2city_self_training.py:214-387, and for the semi-supervised
+Cityscapes stages train_DiGA_semiseg_warm_up.py (the DG step with the aux
+term) and train_DiGA_semiseg_self_training.py (no translator).
 
 The DG and warm-up steps run, in the reference order:
   1. EMA of the teacher parameters (alpha ramped by the step);
@@ -18,12 +20,18 @@ The DG and warm-up steps run, in the reference order:
      for the SYNTHIA stages) on the source half plus
      ``lambda_distil`` x the symmetric distillation, both on logits
      upsampled to the crop (``ops.distill``: the CUDA kernels B1a/B1b on
-     the card);
-  6. the target-stats forward: the student's backbone on the target batch
-     with the pre-step parameters, after the [source; view] statistics
-     update (``steps.py:246-252``; JAX dead-codes the head there);
+     the card); with ``aux_weight`` > 0 (HRNet+OCR) the same two terms on
+     the OCR soft-region logits, times ``aux_weight``, are added to them;
+  6. the target-stats forward: the student's ``bn_stats_forward`` on the
+     target batch with the pre-step parameters, after the [source; view]
+     statistics update (``steps.py:169-175,246-252``: JAX runs the whole
+     model, whose outputs feed nothing; every BN it updates is in
+     ``bn_stats_forward``);
   7. the SGD step at ``schedule(step)``.
-The self-training step is laid out in ``build_selftrain_step``.
+The self-training step is laid out in ``build_selftrain_step``.  With
+``rgb_input`` every model forward sees the image with its channels flipped
+BGR->RGB (``_student_apply``, :104-117); the photometric chain, CrDoMix
+and DACS work on the BGR tensor before the flip.
 Forwards run under ``torch.autocast`` in the compute dtype; parameters
 stay f32.  The metrics stay device tensors until they are logged.
 """
@@ -73,6 +81,14 @@ class StepConfig:
     # the reference's no-grad student(target) forward, kept for its BN
     # running-statistics side effect (diga_tpu StepConfig.tgt_stats_forward)
     tgt_stats_forward: bool = False
+    # semiseg (HRNet+OCR): the aux term's weight on the OCR soft-region
+    # logits, DG/warm-up step only, and the BGR->RGB flip at the model input
+    # (train_DiGA_semiseg_warm_up.py:238,259-263)
+    aux_weight: float = 0.0
+    rgb_input: bool = False
+    # the self-training step's second view: CrDoMix with the frozen
+    # translator, or the photometric view itself (semiseg, :260)
+    use_crdomix: bool = True
     compute_dtype: torch.dtype = torch.bfloat16
 
 
@@ -82,17 +98,24 @@ def _autocast(device: torch.device, dtype: torch.dtype):
     return torch.autocast(device_type=device.type, dtype=dtype)
 
 
-def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2)  # contiguous NHWC -> channels_last NCHW view
-
-
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def _logits_up(model, x_nchw: torch.Tensor, crop_hw) -> torch.Tensor:
-    """The model's logits, bilinearly upsampled to the crop, as NHWC."""
-    return resize_bilinear(_nhwc(model(x_nchw)[2]), crop_hw)
+def _model_input(cfg: StepConfig, x: torch.Tensor) -> torch.Tensor:
+    """An NHWC BGR batch as the model's NCHW input (a channels_last view),
+    its channels flipped to RGB with ``rgb_input``."""
+    if cfg.rgb_input:
+        x = torch.flip(x, dims=(-1,))
+    return x.permute(0, 3, 1, 2)
+
+
+def _logits_up(cfg: StepConfig, model, x: torch.Tensor, with_aux: bool = False):
+    """The model's logits on the NHWC batch ``x``, bilinearly upsampled to
+    the crop, as NHWC; with ``with_aux`` also the aux logits, likewise."""
+    _, aux, logits, _ = model(_model_input(cfg, x))
+    up = resize_bilinear(_nhwc(logits), cfg.crop_hw)
+    return (up, resize_bilinear(_nhwc(aux), cfg.crop_hw)) if with_aux else up
 
 
 def _seg_loss_fn(cfg: StepConfig) -> Callable:
@@ -132,19 +155,27 @@ def _sgd_step(state: SegTrainState, schedule: Callable[[int], float]) -> None:
 def _distill_and_update(cfg: StepConfig, schedule, state: SegTrainState, s_cat: torch.Tensor,
                         s_lbl: torch.Tensor, t_img: torch.Tensor | None,
                         amp) -> dict[str, torch.Tensor]:
-    """Steps 4-7 of the DG and warm-up steps on ``s_cat`` = [source; view]."""
+    """Steps 4-7 of the DG and warm-up steps on ``s_cat`` = [source; view] (NHWC)."""
     b = s_lbl.shape[0]
+    aux = cfg.aux_weight > 0
+    seg_loss = _seg_loss_fn(cfg)
     with torch.no_grad(), amp:
-        t_up = _logits_up(state.teacher, s_cat, cfg.crop_hw)
+        t_up = _logits_up(cfg, state.teacher, s_cat, aux)
     with amp:
-        s_up = _logits_up(state.student, s_cat, cfg.crop_hw)
-        ce = _seg_loss_fn(cfg)(s_up[:b], s_lbl)
+        s_up = _logits_up(cfg, state.student, s_cat, aux)
+        if aux:
+            (t_up, t_aux_up), (s_up, s_aux_up) = t_up, s_up
+        ce = seg_loss(s_up[:b], s_lbl)
         distil = D.distillation_loss(t_up, s_up, DISTIL_SCALE)
+        if aux:
+            ce = ce + cfg.aux_weight * seg_loss(s_aux_up[:b], s_lbl)
+            distil = distil + cfg.aux_weight * D.distillation_loss(t_aux_up, s_aux_up,
+                                                                   DISTIL_SCALE)
         total = cfg.lambda_seg * ce + cfg.lambda_distil * distil
     total.backward()
     if cfg.tgt_stats_forward:
         with torch.no_grad(), amp:
-            state.student.backbone(_nchw(t_img))
+            state.student.bn_stats_forward(_model_input(cfg, t_img))
     _sgd_step(state, schedule)
     return {"loss": total.detach(), "loss_semseg": ce.detach(), "loss_distil": distil.detach()}
 
@@ -164,7 +195,7 @@ def build_dg_step(cfg: StepConfig, schedule: Callable[[int], float]) -> Callable
         amp = _autocast(s_img.device, cfg.compute_dtype)
         ema_update(state.teacher, state.student, ema_alpha(state.step, EMA_CAP))
         s_aug = _photometric(cfg, state.gen_photometric, s_img, photometric_draws)
-        s_cat = _nchw(torch.cat([s_img, s_aug], dim=0))
+        s_cat = torch.cat([s_img, s_aug], dim=0)
         return _distill_and_update(cfg, schedule, state, s_cat, s_lbl, batch.get("t_img"), amp)
 
     return step
@@ -186,7 +217,7 @@ def build_warmup_step(cfg: StepConfig, schedule: Callable[[int], float]) -> Call
         ema_update(state.teacher, state.student, ema_alpha(state.step, EMA_CAP))
         s_aug = _photometric(cfg, state.gen_photometric, s_img, photometric_draws)
         s_mix = _crdomix_view(cfg, state, s_img, s_lbl, s_aug, selection, amp)
-        s_cat = _nchw(torch.cat([s_img, s_mix], dim=0))
+        s_cat = torch.cat([s_img, s_mix], dim=0)
         return _distill_and_update(cfg, schedule, state, s_cat, s_lbl, batch.get("t_img"), amp)
 
     return step
@@ -201,7 +232,9 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
     reference order:
       1. the EMA of the teacher parameters;
       2. the photometric views of source and target;
-      3. the frozen translator and CrDoMix, as in the warm-up;
+      3. the frozen translator and CrDoMix, as in the warm-up; without
+         ``use_crdomix`` (semiseg) the second view is the photometric view
+         itself, and no CrDoMix selection is drawn;
       4. the teacher on [source; mix], then on the target, in train mode
          under ``no_grad``: its BN statistics chain through both forwards,
          and its GroupNorm runs on the kernel B2a/B2b on the card;
@@ -215,7 +248,8 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
          statistics chained;
       9. loss = lambda_seg x (the segmentation loss on the source + on the
          DACS image) + lambda_distil x
-         the distillation against the teacher's [source; mix] logits;
+         the distillation against the teacher's [source; mix] logits, with
+         no aux term whatever ``aux_weight`` says (JAX's has none, :353-380);
      10. the SGD step.
     The JAX package's opt-in ``fuse_forwards`` throughput mode is not
     ported (``train/build.py`` refuses it).
@@ -233,13 +267,14 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
         ema_update(state.teacher, state.student, ema_alpha(state.step, EMA_CAP))
         s_aug = _photometric(cfg, state.gen_photometric, s_img, photometric_draws)
         t_aug = _photometric(cfg, state.gen_photometric_target, t_img, target_photometric_draws)
-        s_mix = _crdomix_view(cfg, state, s_img, s_lbl, s_aug, selection, amp)
-        s_cat = _nchw(torch.cat([s_img, s_mix], dim=0))
+        s_view = (_crdomix_view(cfg, state, s_img, s_lbl, s_aug, selection, amp)
+                  if cfg.use_crdomix else s_aug)
+        s_cat = torch.cat([s_img, s_view], dim=0)
 
         with torch.no_grad():
             with amp:
-                _, _, st_logits, st_feat = state.teacher(s_cat)
-                _, _, tt_logits, tt_feat = state.teacher(_nchw(t_img))
+                _, _, st_logits, st_feat = state.teacher(_model_input(cfg, s_cat))
+                _, _, tt_logits, tt_feat = state.teacher(_model_input(cfg, t_img))
             st_logits, st_feat = _nhwc(st_logits), _nhwc(st_feat)
             tt_logits, tt_feat = _nhwc(tt_logits), _nhwc(tt_feat)
             st_up = resize_bilinear(st_logits, cfg.crop_hw)
@@ -258,8 +293,8 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
             cents = prototypes.update_centroids(cents, vec_s, ok_s, start_mean=False)
 
         with amp:
-            s_up = _logits_up(state.student, s_cat, cfg.crop_hw)
-            cross_up = _logits_up(state.student, _nchw(cross_img), cfg.crop_hw)
+            s_up = _logits_up(cfg, state.student, s_cat)
+            cross_up = _logits_up(cfg, state.student, cross_img)
             seg_loss = _seg_loss_fn(cfg)
             ce = seg_loss(s_up[:b], s_lbl)
             ce_cross = seg_loss(cross_up, cross_lbl)

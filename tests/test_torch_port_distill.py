@@ -141,11 +141,13 @@ def test_launch_counter_stays_zero_on_cpu():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 7, 13, 19),
+                                   (6, 512, 1024, 19)])  # the semiseg warm-up/self-training site
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernels_match_plain(dtype):
+def test_cuda_kernels_match_plain(dtype, shape):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    t, s = _inputs((2, 7, 13, 19), seed=9)
+    t, s = _inputs(shape, seed=9)
     tt = torch.from_numpy(t).to("cuda", dtype)
     st = torch.from_numpy(s).to("cuda", dtype)
     g = torch.tensor(0.75, device="cuda")
@@ -174,6 +176,7 @@ def test_cuda_kernels_match_plain(dtype):
 
 MAIN_NPIX = 3 * 512 * 896  # the warm-up path's (6, 512, 896, 19): pixels per view
 DG_NPIX = 4 * 512 * 896  # the DG path's (8, 512, 896, 19)
+SEMISEG_NPIX = 3 * 512 * 1024  # the semiseg paths' (6, 512, 1024, 19)
 SMS = 132  # H100 SXM
 ALIGNED = 0x7F00_0000_0000  # a 16-byte aligned device address
 DISTILL_CU = pathlib.Path(D.__file__).resolve().parents[1] / "csrc" / "distill.cu"
@@ -204,7 +207,7 @@ def test_plan_constants_match_the_kernel_source(name, value):
 @pytest.mark.parametrize("elem", [2, 4])
 def test_tile_walk_covers_every_pixel_once(elem, backward):
     r = _plan(MAIN_NPIX, elem=elem, backward=backward).tile
-    for npix in (1, 7, r - 1, r, r + 1, MAIN_NPIX, DG_NPIX):
+    for npix in (1, 7, r - 1, r, r + 1, MAIN_NPIX, DG_NPIX, SEMISEG_NPIX):
         plan = _plan(npix, elem=elem, backward=backward)
         assert plan.tile == r and plan.n_tiles == -(-npix // r)
         walk = _tile_walk(npix, plan)
@@ -248,6 +251,8 @@ def test_plan_fits_shared_memory_for_every_k(elem, backward):
     (1, 19, 2, (0, 0), False, False),
     (DG_NPIX, 19, 2, (0, 0), False, True),  # the DG path's shape: aug half at byte 69,730,304
     (DG_NPIX, 19, 2, (0, 0, 0), True, True),
+    (SEMISEG_NPIX, 19, 2, (0, 0), False, True),  # semiseg: aug half at byte 59,768,832
+    (SEMISEG_NPIX, 19, 4, (0, 0, 0), True, True),
 ])
 def test_16_byte_path_exactly_when_spans_are_aligned(npix, k, elem, offsets, backward, vec):
     ptrs = tuple(ALIGNED + o for o in offsets)

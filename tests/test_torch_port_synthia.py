@@ -264,11 +264,30 @@ def test_bdd_and_mapillary_target_streams_match_jax(tmp_path, kind):
         np.testing.assert_array_equal(a["label"], b["label"])
 
 
-def test_cityscapes_source_stream_is_still_refused():
-    spec = port_presets.LoaderSpec("cityscapes", (30, 52), 1)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        port_loop.build_dataset(spec, port_presets.get_preset("gta2city_warmup").data,
-                                (24, 40), True)
+def test_cityscapes_source_stream_is_still_refused(tmp_path):
+    """The Cityscapes source stream of the semi-supervised presets, refused
+    until the port had HRNet, now builds and matches the JAX package's
+    sample for sample: images from ``source_root``/``source_list``, labels
+    from ``target_lbl_list`` paired by position.  What stays refused on such
+    a source is ``calc_centroids --source``
+    (tests/test_torch_port_semiseg_cli.py)."""
+    root = str(tmp_path / "city")
+    img_list, lbl_list = jax_synthetic.make_cityscapes_fixture(root, n=2, h=36, w=64,
+                                                               split="train")
+    samples = []
+    for presets, loop in ((port_presets, port_loop), (jax_presets, jax_loop)):
+        data = dataclasses.replace(presets.get_preset("semiseg_1_8_warmup").data,
+                                   source_root=root, source_list=img_list,
+                                   target_lbl_list=lbl_list)
+        spec = data.source_streams[0]
+        assert spec.kind == "cityscapes" and data.source_lbl_list is None
+        ds = loop.build_dataset(dataclasses.replace(spec, resize_hw=(30, 52)), data, (24, 40),
+                                True)
+        samples.append([ds.__getitem__(i, rng=np.random.default_rng(i)) for i in range(2)])
+    for a, b in zip(*samples):
+        assert a["name"] == b["name"] and a["image"].shape == (24, 40, 3)
+        np.testing.assert_array_equal(a["image"], b["image"])
+        np.testing.assert_array_equal(a["label"], b["label"])
 
 
 # ---------------------------------------------------------------------------
