@@ -12,7 +12,10 @@ weights (``pseudolabel_generator`` -> ``calc_centroids`` ->
 ``train_self_training``), the DG stage (``train_dg``), the
 SYNTHIA->Cityscapes chain at 16 classes, a ``--parity`` warm-up, the
 translator stage (``train_domain_translator``), a resumed warm-up, and the
-semi-supervised Cityscapes chain on HRNet-W48+OCR.
+semi-supervised Cityscapes chain on HRNet-W48+OCR; and the tools of
+slice 10: ``profile_step``, the loop's device prefetch, the fused
+self-training step (``--extra fuse_forwards=true``) and ``parity_check``
+against the replay oracle.
 Phases, any failure of which exits non-zero:
 
   1. device: require CUDA; print the card's name and power limit
@@ -20,8 +23,10 @@ Phases, any failure of which exits non-zero:
   3. GroupNorm kernels (B2a/B2b) against their plain versions on the card,
      f32 (1e-5) and bf16 (3e-2), at the paths' shapes (the eval's
      (1, 129, 257, 256) and (1, 65, 129, 256), the teachers' (6, 65, 113,
-     256), (3, 65, 113, 256) and (8, 65, 113, 256), calc_centroids
-     --source's (1, 91, 161, 256)) and at the edges of
+     256), (3, 65, 113, 256), (8, 65, 113, 256) and the fused
+     self-training teacher's (9, 65, 113, 256), calc_centroids --source's
+     (1, 91, 161, 256), parity_check's activation input's (1, 17, 29,
+     256)) and at the edges of
      B2a's design: ragged, C=64, C=32, one row, fewer rows than one tile, a
      whole number of tiles, batch 6 with a ragged H·W, a base pointer
      16-byte but not 128-byte aligned; f32 channel sums at 1e-5 relative;
@@ -47,6 +52,10 @@ Phases, any failure of which exits non-zero:
      1e-3, parameters within 1e-5, BN running statistics within 1e-4 +
      1e-3 x |value| (cuDNN's f32 conv algorithms), centroid counts equal
      and vectors within 1e-5 + 1e-4 x |value|
+  4b. profile_step (gta2city_warmup at full width, a synthetic batch, 2
+     warm-up, 2 timed and 2 traced steps), the process's first profiler
+     use: its report has device time in the distill and group_norm
+     families and names the distill_* and gn_* kernels
   5. main path, eval: full-width R101 (random weights from a numpy seed,
      saved as student.pth), two synthetic 1024x2048 Cityscapes val images,
      evaluate_val in bf16; finite two-scale logits whose argmax matches the
@@ -59,6 +68,13 @@ Phases, any failure of which exits non-zero:
      exported student.pth loads strictly into the eval model.  Then the
      step timed on one batch (distillation kernel vs plain, in turns):
      ms/step, source imgs/s, peak memory
+  6b. device prefetch on the warm-up's full-resolution streams: host
+     s/batch from the loader alone, to_device's host call and copy time;
+     the warm-up step fed from batches on the host through to_device and
+     through device_prefetch in turns, 6 steps each (wall ms/step, the
+     host's wait for its batch); then 20 steps fed from the loader through
+     device_prefetch, each batch copied back to pinned host memory after
+     its step and required equal to its host copy
   7. main paths, self-training chain and DG, at full width from the
      warm-up's last-step state (``ckpt_final``: 3 steps with no eval
      write no best ``weights``), on two 1024x2048 Cityscapes train images:
@@ -69,6 +85,15 @@ Phases, any failure of which exits non-zero:
      3 steps) logs finite losses and a consensus_kept in [0, 1]; train_dg
      (preset dg_gta5: source 2 + 2, target 2 + 2, 3 steps).  Then the
      pseudo-label ms/img and the self-training and DG steps timed as in 6
+  7b. train_self_training --extra fuse_forwards=true (3 steps, from the
+     warm-up's state): one teacher forward a step, every GroupNorm at (9,
+     65, 113, 256); finite losses, consensus_kept in [0, 1].  Then the
+     fused and unfused step timed in turns on one batch (ms/step, source
+     imgs/s, peak memory; busy share under --profile).  Then parity_check
+     --vs_torch_replay --compute_dtype float32 on the warm-up's student.pth
+     and the two val images: pixel disagreement below 1e-3 against the
+     replay, the activation difference printed; the bf16 disagreement
+     printed beside it, not gated
   8. main paths, SYNTHIA->Cityscapes at full width (R101, 16 classes,
      bf16, synthetic SYNTHIA at its own 760x1280 with uint16 labels):
      train_warm_up (preset synthia2city_warmup: OHEM, LR warm-up 1000,
@@ -108,7 +133,9 @@ Phases, any failure of which exits non-zero:
      logits whose argmax is the dumped prediction); each ckpt_final's
      student.pth loads strictly into the eval model.  Then the eval's ms/img
      and the warm-up and self-training steps timed as in 6, beside the
-     compute floor counted from the code (``hrnet_ocr_gmacs``)
+     compute floor counted from the code (``hrnet_ocr_gmacs``), and the
+     self-training step fused against unfused as in 7b (one fused step
+     launches B1 once and no B2)
   9. kernel timing: per-site GroupNorm and distillation device times
      (CUDA events around back-to-back calls queued behind a sleep kernel)
      against their byte bounds, plain versions and nearest library calls
@@ -131,18 +158,24 @@ reductions); the warm-up from the translator's weights (1 step) 1, 1, 6,
 6; the semiseg train_warm_up (3 steps) 6, 6, 0, 0 (the logits and the
 OCR aux logits), train_self_training (3 steps) 3, 3, 0, 0, and its
 pseudolabel_generator, calc_centroids and evaluate_val 0, 0, 0, 0
-(HRNet+OCR has no GroupNorm).  On a train path every B1a launch must be
+(HRNet+OCR has no GroupNorm); profile_step (6 steps) 6, 6, 36, 36; the
+fused train_self_training (3 steps) 3, 3, 18, 18; parity_check 0, 0, 30,
+30 (6 for the activation input, 2 images x 2 scales x 6).  On a train path every B1a launch must be
 at its site: bf16 (6, 512, 896, 19) for the GTA5 warm-ups and
 self-training, (8, 512, 896, 19) for DG, (8, 512, 896, 16) and (6, 512,
 896, 16) for the SYNTHIA warm-up and self-training, f32 (6, 512, 896, 19)
 under --parity, bf16 (6, 512, 1024, 19) for the semiseg warm-up and
-self-training.  A kernel's
+self-training, bf16 (6, 512, 896, 19) for profile_step and the fused
+self-training; every GroupNorm of the fused self-training at (9, 65, 113,
+256), of profile_step at (6, 65, 113, 256), of parity_check at (1, 17, 29,
+256), (1, 129, 257, 256) and (1, 65, 129, 256).  A kernel's
 ``launches`` in the JSON line is its sum over these runs.
 
 ``--profile DIR`` also writes torch.profiler tables and traces of one
 two-scale eval and of one warm-up, self-training, DG and translator step,
-and of the semiseg eval, warm-up and self-training step, into DIR, with
-their busy shares.
+of the semiseg eval, warm-up and self-training step, and of the fused and
+unfused self-training steps (GTA5 and semiseg), into DIR, with their busy
+shares.
 """
 
 from __future__ import annotations
@@ -155,6 +188,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -165,10 +199,13 @@ import torch
 import torch.nn.functional as F
 from PIL import Image
 
-from diga_tpu_torch.cli import (calc_centroids, evaluate_val, pseudolabel_generator, train_dg,
-                                train_domain_translator, train_self_training, train_warm_up)
+from diga_tpu_torch.cli import (calc_centroids, evaluate_val, parity_check, pseudolabel_generator,
+                                train_dg, train_domain_translator, train_self_training,
+                                train_warm_up)
+from diga_tpu_torch.cli import profile_step as profile_step_cli
 from diga_tpu_torch.configs.presets import get_preset
 from diga_tpu_torch.data import cityscapes_dataset, synthetic
+from diga_tpu_torch.data.prefetch import device_prefetch
 from diga_tpu_torch.eval.evaluator import two_scale_logits
 from diga_tpu_torch.models import resnet_deeplab
 from diga_tpu_torch.models.hrnet_ocr import HRNetOCR
@@ -182,7 +219,8 @@ from diga_tpu_torch.ops import photometric as P
 from diga_tpu_torch.ops.prototypes import Centroids
 from diga_tpu_torch.ops.losses import distillation_loss as plain_distillation_loss
 from diga_tpu_torch.ops.metrics import confusion_update
-from diga_tpu_torch.train.build import build_eval, build_experiment, wants_target
+from diga_tpu_torch.train.build import (build_eval, build_experiment, make_schedule,
+                                        make_step_config, wants_target)
 from diga_tpu_torch.train.loop import make_train_iterator, make_translator_iterator, to_device
 from diga_tpu_torch.train.optim import sgd_grouped
 from diga_tpu_torch.train.schedules import poly_schedule
@@ -203,9 +241,11 @@ GN_TRAIN_SITES = [
     (6, 65, 113, 256),  # the warm-ups' and self-trainings' teachers on 6 images, crop 512x896
     (3, 65, 113, 256),  # the self-training teachers on the target
     (8, 65, 113, 256),  # the DG and SYNTHIA warm-up teachers on 8 images
+    (9, 65, 113, 256),  # the fused self-training teacher on [source; mix; target], 3 + 3 + 3
 ]
 GN_SOURCE_SITE = (1, 91, 161, 256)  # calc_centroids --source on the 720x1280 source stream
-GN_PATH_SITES = GN_SITES + GN_TRAIN_SITES + [GN_SOURCE_SITE]
+GN_PARITY_SITE = (1, 17, 29, 256)  # parity_check's activation input, 129x225 at output stride 8
+GN_PATH_SITES = GN_SITES + GN_TRAIN_SITES + [GN_SOURCE_SITE, GN_PARITY_SITE]
 GN_CHECKS = [  # (shape, base pointer offset in bytes)
     *((s, 0) for s in GN_PATH_SITES),
     ((2, 17, 29, 256), 0),  # ragged
@@ -260,7 +300,10 @@ PARITY_STEPS = 2
 PARITY_LAYERS = [1, 1, 1, 1]  # the --parity warm-up's depth: R101's widths, one block a stage
 TRAIN_PATHS = ("train_warm_up", "train_self_training", "train_dg", "synthia train_warm_up",
                "synthia train_self_training", "parity train_warm_up",
-               "translated train_warm_up", "resume train_warm_up", "resumed train_warm_up")
+               "translated train_warm_up", "resume train_warm_up", "resumed train_warm_up",
+               "fused train_self_training", "profile_step")
+PREFETCH_BATCHES = 20  # prefetched batches held equal to their host copies under real steps
+PROFILE_STEPS = 2  # profile_step's traced (and untraced timed) steps, after its 2 warm-up steps
 TRANSLATOR_STEPS = 3
 TRANSLATOR_SHORT_STEPS = 2  # the SYNTHIA and the VGG translator runs
 # the translator stage reaches no TPU kernel: each run must launch none
@@ -1022,18 +1065,25 @@ def phase_train_timing(preset: str, data_paths: dict, card: str, profile_dir: st
     return out
 
 
-def run_path(name: str, fn, argv: list, want: dict, distill_site: tuple | None = None):
+def run_path(name: str, fn, argv: list, want: dict, distill_site: tuple | None = None,
+             gn_sites: set | None = None):
     """Drive one CLI with every launch count set to 0 just before and read
-    just after; require the counts to be ``want`` and, on a train path,
-    every B1a launch at ``distill_site`` = (dtype, shape)."""
-    sites = []
-    kernel = D.distillation_loss_kernel
+    just after; require the counts to be ``want``, on a train path every
+    B1a launch at ``distill_site`` = (dtype, shape), and with ``gn_sites``
+    the GroupNorm calls at exactly those NHWC shapes."""
+    sites, gn_seen = [], []
+    kernel, gn_kernel = D.distillation_loss_kernel, resnet_deeplab.group_norm
 
     def recorded(t, s, scale):
         sites.append((t.dtype, tuple(t.shape)))
         return kernel(t, s, scale)
 
+    def gn_recorded(x, *args, **kw):
+        gn_seen.append(tuple(x.shape))
+        return gn_kernel(x, *args, **kw)
+
     D.distillation_loss_kernel = recorded
+    resnet_deeplab.group_norm = gn_recorded
     try:
         reset_launches()
         t0 = time.perf_counter()
@@ -1042,12 +1092,16 @@ def run_path(name: str, fn, argv: list, want: dict, distill_site: tuple | None =
         counts = launches()
     finally:
         D.distillation_loss_kernel = kernel
+        resnet_deeplab.group_norm = gn_kernel
     print(f"main path: {name} in {time.perf_counter() - t0:.1f} s (set-up and data loading "
           f"included); launches={counts}"
-          + (f"; B1a at {sorted(set(sites))}" if sites else ""), flush=True)
+          + (f"; B1a at {sorted(set(sites))}" if sites else "")
+          + (f"; B2 at {sorted(set(gn_seen))}" if gn_sites is not None else ""), flush=True)
     require(counts == want, f"kernel launches on the {name} path {counts}, expected {want}")
     require(distill_site is None or set(sites) == {distill_site},
             f"B1a on the {name} path at {sorted(set(sites))}, expected {distill_site}")
+    require(gn_sites is None or set(gn_seen) == gn_sites,
+            f"B2 on the {name} path at {sorted(set(gn_seen))}, expected {sorted(gn_sites or ())}")
     return result, counts
 
 
@@ -1433,6 +1487,250 @@ def phase_resume(work: str, gta_paths: dict) -> dict:
     return counts
 
 
+def phase_profile_step(work: str, card: str) -> dict:
+    """profile_step at full width (gta2city_warmup: 2 warm-up, 2 timed and 2
+    traced steps on a synthetic batch), the first profiler use of the
+    process: its report must hold device time in the distill and group_norm
+    families and name the port's distill_* and gn_* kernels.  Returns the
+    launch counts by path."""
+    out = io.StringIO()
+    n = 2 + 2 * PROFILE_STEPS
+    with contextlib.redirect_stdout(Tee(sys.stdout, out)):
+        rep, counts = run_path(
+            "profile_step", profile_step_cli.main,
+            ["--preset", PRESET, "--steps", str(PROFILE_STEPS),
+             "--trace_dir", os.path.join(work, "profile_step")],
+            kernel_counts(n, 6 * n), (torch.bfloat16, DISTILL_SHAPE), {GN_TRAIN_SITES[0]})
+    text = out.getvalue()
+    require(rep is not None and rep.total_s > 0, "profile_step: no device ops in its trace")
+    require({"distill", "group_norm"} <= set(rep.by_category),
+            f"profile_step: no distill or group_norm family in {sorted(rep.by_category)}")
+    start, end = text.find("port kernels"), text.find("device ops (ms/step)")
+    names = (sorted(set(re.findall(r"\b(?:distill|gn)_\w*kernel", text[start:end])))
+             if 0 <= start < end else [])
+    require(any(k.startswith("distill_") for k in names) and any(k.startswith("gn_")
+                                                                for k in names),
+            f"profile_step's table does not name the port's kernels: {names}")
+    print(f"profile_step {PRESET}: device {rep.device_ms_per_step:.2f} ms/step of "
+          f"{rep.step_ms:.2f} unprofiled, busy share {rep.busy_share:.3f}; families "
+          + json.dumps({k: round(v[0] / PROFILE_STEPS * 1e3, 3) for k, v in
+                        sorted(rep.by_category.items(), key=lambda kv: -kv[1][0])})
+          + f" ms/step; port kernels named {names} | card={card}", flush=True)
+    return {"profile_step": counts}
+
+
+def phase_prefetch(data_paths: dict, card: str) -> dict:
+    """The warm-up's full-resolution streams (GTA5 1052x1914, Cityscapes
+    1024x2048; source 1 + 2, target 1 + 2): host s/batch from the loader
+    alone; ``to_device``'s host time per batch and its time to the copy's
+    end; the warm-up step fed from batches already on the host through
+    ``to_device`` (the loop before the prefetch) and through
+    ``device_prefetch``, in turns (the copy's cost without the loader's);
+    then ``PREFETCH_BATCHES`` batches from the loader through
+    ``device_prefetch`` under real steps, each copied back to pinned host
+    memory on the step's stream after its step and, after the loop,
+    required equal to its host copy.  Wall ms/step and the host's wait per
+    step for its batch."""
+    base = get_preset(PRESET)
+    cfg = dataclasses.replace(base, data=dataclasses.replace(base.data, **data_paths))
+    it, loaders = make_train_iterator(cfg, with_target=True)
+    try:
+        next(it)  # the worker threads' start
+        t0 = time.perf_counter()
+        host = [next(it) for _ in range(6)]
+        loader_s = (time.perf_counter() - t0) / len(host)
+    finally:
+        for ld in loaders:
+            ld.stop()
+    mb = sum(v.nbytes for v in host[0].values() if isinstance(v, np.ndarray)) / 1e6
+    call_ms, copy_ms = [], []
+    for b in host:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = to_device(b, DEVICE)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        call_ms.append((t1 - t0) * 1e3)
+        copy_ms.append((time.perf_counter() - t0) * 1e3)
+    del d
+    state, step, _ = build_experiment(cfg, DEVICE)
+
+    def loop(batches, n: int, staged: list | None = None) -> tuple[float, float]:
+        """(wall ms/step, wait ms/step) over n steps after a first one."""
+        waits = []
+        for i in range(n + 1):  # the first: the loader's start, the allocator
+            if i == 1:
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+            t0 = time.perf_counter()
+            batch = next(batches)
+            if i:
+                waits.append(time.perf_counter() - t0)
+            step(state, {k: v for k, v in batch.items() if k != "t_lbl"})
+            if staged is not None:
+                staged.append({k: v.to("cpu", non_blocking=True) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t_start) / n * 1e3, float(np.mean(waits)) * 1e3
+
+    def cycled():
+        while True:
+            yield from host
+
+    times = {"to_device": [], "prefetch": []}
+    for mode in ("to_device", "prefetch", "prefetch", "to_device"):
+        src = cycled()
+        batches = (device_prefetch(src, DEVICE) if mode == "prefetch"
+                   else (to_device(b, DEVICE) for b in src))
+        times[mode].append(loop(batches, 6))
+    it, loaders = make_train_iterator(cfg, with_target=True)
+    copies, staged = [], []
+
+    def tee():
+        for b in it:
+            copies.append(b)
+            yield b
+
+    try:
+        fed = loop(device_prefetch(tee(), DEVICE), PREFETCH_BATCHES, staged)
+    finally:
+        for ld in loaders:
+            ld.stop()
+    for i, (got, want) in enumerate(zip(staged, copies)):
+        for k, v in want.items():
+            require(np.array_equal(got[k].numpy(), v),
+                    f"device_prefetch: batch {i} {k} on the card differs from its host copy")
+    out = {"loader_s_per_batch": loader_s, "to_device_call_ms": float(np.mean(call_ms)),
+           "to_device_ms": float(np.mean(copy_ms)), "loader_fed_prefetch_ms_per_step": fed[0],
+           "loader_fed_prefetch_wait_ms": fed[1]}
+    for mode, runs in times.items():
+        out[f"{mode}_ms_per_step"] = float(np.mean([r[0] for r in runs]))
+        out[f"{mode}_wait_ms"] = float(np.mean([r[1] for r in runs]))
+    fmt = lambda mode: (f"{out[mode + '_ms_per_step']:.2f} {[round(r[0], 2) for r in times[mode]]}"
+                        f" (wait {out[mode + '_wait_ms']:.2f})")  # noqa: E731
+    print(f"prefetch {PRESET} streams ({mb:.1f} MB a batch): loader alone {loader_s:.3f} "
+          f"s/batch; to_device {out['to_device_call_ms']:.2f} ms of host call, "
+          f"{out['to_device_ms']:.2f} ms to the copy's end; warm-up step from host batches, "
+          f"ms/step: to_device {fmt('to_device')}, device_prefetch {fmt('prefetch')}; from the "
+          f"loader through device_prefetch {fed[0]:.2f} ms/step (wait {fed[1]:.2f}), "
+          f"{len(staged)} of {len(staged)} prefetched batches equal to their host copies "
+          f"| card={card}", flush=True)
+    return out
+
+
+def phase_fused_selftrain(work: str, chain: dict) -> dict:
+    """train_self_training --extra fuse_forwards=true at full width, 3 steps,
+    from the warm-up's state: one teacher forward a step (6 GroupNorms, all
+    at batch 9: [source; mix; target]) and one student forward; finite
+    losses, consensus_kept in [0, 1].  Returns the launch counts by path."""
+    wd = os.path.join(work, "selftrain_fused")
+    result, counts = run_path(
+        "fused train_self_training", train_self_training.main,
+        ["--preset", SELFTRAIN_PRESET, "--work_dir", wd, "--num_steps", str(TRAIN_STEPS),
+         "--load_weight_dir", chain["warm"], "--centroid_path", chain["centroid_path"],
+         "--extra", "fuse_forwards=true", *data_args(chain["data"])],
+        kernel_counts(TRAIN_STEPS, 6 * TRAIN_STEPS), (torch.bfloat16, DISTILL_SHAPE),
+        {GN_TRAIN_SITES[3]})
+    check_train_run("fused train_self_training", wd, result,
+                    ("loss", "loss_semseg", "loss_crossmix", "loss_distil", "consensus_kept"),
+                    preset=SELFTRAIN_PRESET)
+    return {"fused train_self_training": counts}
+
+
+def phase_fused_timing(preset: str, data_paths: dict, card: str, profile_dir: str | None,
+                       gn_per_step: int, **build_kw) -> dict:
+    """ms/step of ``preset``'s self-training step on one batch on the card,
+    fused (``fuse_forwards``) and unfused in turns (fused, unfused, unfused,
+    fused) on one state; source imgs/s, peak memory, and under --profile
+    the busy share of each.  One fused step must launch B1 once and B2
+    ``gn_per_step`` times."""
+    base = get_preset(preset)
+    cfg = dataclasses.replace(base, data=dataclasses.replace(base.data, **data_paths))
+    state, unfused, _ = build_experiment(cfg, DEVICE, **build_kw)
+    fused = build_selftrain_step(dataclasses.replace(make_step_config(cfg), fuse_forwards=True),
+                                 make_schedule(cfg))
+    steps = {"fused": fused, "unfused": unfused}
+    it, loaders = make_train_iterator(cfg, with_target=True)
+    try:
+        batch = to_device(next(it), DEVICE)
+    finally:
+        for ld in loaders:
+            ld.stop()
+    batch.pop("t_lbl", None)
+    n_src, n_tgt = batch["s_img"].shape[0], batch["t_img"].shape[0]
+    for step in steps.values():
+        step_ms(state, step, batch, 2)  # cuDNN autotuning at the batch-9 shapes, allocator
+    reset_launches()
+    step_ms(state, fused, batch, 1)
+    want = kernel_counts(1, gn_per_step)
+    require(launches() == want, f"one fused {preset} step launched {launches()}, expected {want}")
+    times = {form: [] for form in steps}
+    peaks = {form: 0.0 for form in steps}
+    for form in ("fused", "unfused", "unfused", "fused"):
+        torch.cuda.reset_peak_memory_stats()
+        times[form].append(step_ms(state, steps[form], batch, 4))
+        peaks[form] = max(peaks[form], torch.cuda.max_memory_allocated() / 2**30)
+    hrnet = cfg.extra.get("model") == "hrnet_ocr"
+    out = {}
+    for form in steps:
+        ms = float(np.mean(times[form]))
+        out[form] = {"ms_per_step": ms, "peak_mem_GiB": peaks[form],
+                     "imgs_per_sec": n_src / (ms / 1e3)}
+        print(f"train selftrain step ({form}) {'HRNet-W48+OCR' if hrnet else 'R101'} bf16 "
+              f"source {n_src} + target {n_tgt} imgs crop {tuple(batch['s_img'].shape[1:3])}: "
+              f"ms/step {ms:.2f} {times[form]} source imgs/s {out[form]['imgs_per_sec']:.2f} "
+              f"peak_mem_GiB={peaks[form]:.2f} | card={card}", flush=True)
+        if profile_dir:
+            tag = f"{'semiseg_' if hrnet else ''}selftrain_{form}"
+            out[form].update(profile_step(tag, state, steps[form], batch, ms, profile_dir))
+    print(json.dumps({"metric": f"{preset}_fused_train_imgs_per_sec_per_chip",
+                      "value": out["fused"]["imgs_per_sec"], "unit": "imgs/sec",
+                      "ms_per_step": out["fused"]["ms_per_step"],
+                      "ms_per_step_unfused": out["unfused"]["ms_per_step"],
+                      "peak_mem_GiB": out["fused"]["peak_mem_GiB"],
+                      "peak_mem_GiB_unfused": out["unfused"]["peak_mem_GiB"],
+                      **({"busy_share": out["fused"]["busy_share"],
+                          "busy_share_unfused": out["unfused"]["busy_share"]}
+                         if profile_dir else {}), "card": card}), flush=True)
+    return out
+
+
+def phase_parity_check(warm: str, val_paths: dict, card: str) -> dict:
+    """parity_check --vs_torch_replay at full width in f32 (R101, the
+    warm-up's student.pth, 2 synthetic 1024x2048 val images): pixel
+    disagreement with the replay below 1e-3, B2 launched 6 times for the
+    activation input and 2 images x 2 scales x 6 for the eval; then, not
+    gated, the bf16 eval's disagreement and activation difference against
+    the same f32 replay.  Returns the launch counts by path."""
+    val = ["--target_root", val_paths["root"], "--val_img_list", val_paths["val_img"],
+           "--val_lbl_list", val_paths["val_lbl"]]
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(Tee(sys.stdout, out)):
+            (conf_ours, conf_torch, disagree), counts = run_path(
+                "parity_check", parity_check.main,
+                ["--preset", PRESET, "--weight_dir", warm, "--vs_torch_replay", "--eval_limit",
+                 str(N_IMAGES), "--compute_dtype", "float32", *val],
+                kernel_counts(0, 6 + N_IMAGES * 2 * 6), gn_sites={GN_PARITY_SITE, *GN_SITES})
+    except SystemExit as e:  # the gate's breach
+        raise SmokeFailure(f"parity_check: {e}") from e
+    act = float(re.search(r"logits_torch\| = (\S+)", out.getvalue()).group(1))
+    gap = int(np.abs(conf_ours - conf_torch).sum())
+    require(disagree < parity_check.GATE, f"parity_check f32: disagreement {disagree}")
+    base = get_preset(PRESET)
+    cfg = dataclasses.replace(base, data=dataclasses.replace(
+        base.data, target_root=val_paths["root"], val_img_list=val_paths["val_img"],
+        val_lbl_list=val_paths["val_lbl"]))
+    with parity_check.no_tf32():
+        act_bf16 = parity_check.activation_parity(cfg, warm, DEVICE)
+        _, _, disagree_bf16 = parity_check.eval_confusion_vs_torch(cfg, warm, DEVICE, N_IMAGES)
+    print(f"parity_check R101 two-scale {OUT_HW[0]}x{OUT_HW[1]}+{DS_HW[0]}x{DS_HW[1]}, "
+          f"{N_IMAGES} images, against the f32 replay: f32 activation max_abs_diff {act:.3e}, "
+          f"pixel disagreement {disagree:.3e} (gate {parity_check.GATE}), confusion L1 gap "
+          f"{gap} of {int(conf_ours.sum())}; bf16 (not gated) activation max_abs_diff "
+          f"{act_bf16:.3e}, pixel disagreement {disagree_bf16:.3e} | card={card}", flush=True)
+    return {"parity_check": counts}
+
+
 def hrnet_ocr_gmacs(hw=(512, 1024)) -> float:
     """Multiply-accumulates (G) of one HRNet-W48+OCR forward on one image of
     ``hw``, counted from the code: every convolution's, by forward hooks on a
@@ -1581,6 +1879,11 @@ def phase_semiseg(work: str, card: str, profile_dir: str | None) -> dict:
               flush=True)
         gc.collect()
         torch.cuda.empty_cache()
+    # the fused self-training step: B1 once a step, no B2 (HRNet+OCR has no GroupNorm)
+    phase_fused_timing(SEMISEG_SELFTRAIN_PRESET, paths, card, profile_dir, 0,
+                       load_weight_dir=warm, centroid_path=centroid_path)
+    gc.collect()
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -1672,8 +1975,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=str, default=None,
                     help="directory for torch.profiler tables and traces of one eval and "
-                         "one warm-up, self-training, DG and translator step, and of the "
-                         "semiseg eval, warm-up and self-training step")
+                         "one warm-up, self-training, DG and translator step, of the "
+                         "semiseg eval, warm-up and self-training step, and of the fused "
+                         "and unfused self-training steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs on the card",
@@ -1707,6 +2011,11 @@ def main(argv=None) -> int:
     lap("4 tiny card vs CPU")
     counts = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        # 4b. profile_step on the warm-up, the process's first profiler use
+        counts.update(phase_profile_step(work, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("4b profile_step")
         # 5. main path: the eval
         counts["evaluate_val"], paths = phase_main_path(work)
         eval_apply, eval_model = build_eval(get_preset(PRESET), paths["wdir"],
@@ -1727,6 +2036,11 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         lap("6 warm-up")
+        # 6b. the loader alone, to_device, and the loop through device_prefetch
+        phase_prefetch(data_paths, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("6b prefetch")
         # 7. main paths: the self-training chain and DG
         chain_counts, chain = phase_chain_main_paths(work, data_paths)
         counts.update(chain_counts)
@@ -1743,6 +2057,18 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         lap("7 self-training chain, DG")
+        # 7b. fused self-training (CLI and timing), parity_check against the replay
+        counts.update(phase_fused_selftrain(work, chain))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_fused_timing(SELFTRAIN_PRESET, chain["data"], card, args.profile, 6,
+                           load_weight_dir=chain["warm"], centroid_path=chain["centroid_path"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts.update(phase_parity_check(chain["warm"], paths, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("7b fused self-training, parity_check")
         # 8. main paths: SYNTHIA->Cityscapes and a --parity warm-up
         synthia_counts, synthia_paths = phase_synthia_chain(work, paths, data_paths)
         counts.update(synthia_counts)

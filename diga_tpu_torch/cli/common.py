@@ -42,7 +42,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="not supported yet (multi-GPU slice)")
     p.add_argument("--extra", action="append", default=[], metavar="KEY=VALUE",
                    help="override an ExperimentConfig.extra entry (repeatable); "
-                        "values parse as JSON when possible, else raw strings")
+                        "values parse as JSON when possible (True/False in any case as "
+                        "booleans), else raw strings")
     p.add_argument("--parity", action="store_true",
                    help="pin every documented deviation knob to the "
                         "reference-faithful setting: photometric=kornia, "
@@ -66,7 +67,7 @@ def apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
         if v is not None:
             data_kw[field] = v
     train_kw = {}
-    if args.num_steps is not None:
+    if getattr(args, "num_steps", None) is not None:
         train_kw["num_steps"] = args.num_steps
     if getattr(args, "compute_dtype", None):
         train_kw["compute_dtype"] = args.compute_dtype
@@ -80,7 +81,8 @@ def apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
         try:
             cli_extra[key] = json.loads(raw)
         except json.JSONDecodeError:
-            cli_extra[key] = raw
+            # a capitalised boolean is a boolean, never the truthy string "False"
+            cli_extra[key] = {"true": True, "false": False}.get(raw.lower(), raw)
     if getattr(args, "parity", False):
         cli_extra.pop("tgt_stats_forward", None)
         cli_extra["photometric"] = "kornia"

@@ -4,7 +4,8 @@ Counterpart of ``diga_tpu/cli/train_seg.py`` (:50-119) on one device, with
 ``--device`` (default ``cuda``).  Full-state checkpoints as the JAX
 trainer writes them (``utils/checkpoint.py``): ``--save_every`` N saves
 the state to ``<work_dir>/ckpt_final`` every N steps in the background,
-each new best mIoU writes ``<work_dir>/weights`` and ``<work_dir>/ckpt_best``,
+each new best mIoU writes ``<work_dir>/weights`` and ``<work_dir>/ckpt_best``
+(``on_best``, their one writer),
 the end writes ``<work_dir>/ckpt_final``, and ``--resume`` continues from
 ``<work_dir>/ckpt_final`` where one exists.  ``--pretrained_backbone PATH``
 lays a reference ResNet-101 ``.pth`` (the Caffe init, or a
@@ -12,9 +13,11 @@ lays a reference ResNet-101 ``.pth`` (the Caffe init, or a
 hrnetv2 ``.pth`` over HRNet's (the semi-supervised presets).  Refused,
 with a message: ``--pretrained_backbone auto`` (it downloads; the port
 fetches nothing), the multi-device flags, the translator stage (its CLI
-is ``train_domain_translator``), the step option that is not ported
-(``--extra fuse_forwards``) and the JAX HRNet's TPU knobs (``--extra
-hrnet_pad``, ``remat_policy``, ``remat``).
+is ``train_domain_translator``) and the JAX HRNet's TPU knobs (``--extra
+hrnet_pad``, ``remat_policy``, ``remat``).  ``--extra fuse_forwards=true``
+runs the self-training step in its throughput mode: one teacher and one
+student forward a step over the concatenated batches, whose pooled BN
+statistics make it differ from the unfused step (not parity-exact).
 
 Usage:
   python -m diga_tpu_torch.cli.train_warm_up --preset gta2city_warmup \\
@@ -30,7 +33,8 @@ Usage:
       --target_lbl_list <their labels, in the same order> \\
       --target_root ./data/Cityscapes --target_img_list <unlabeled images> ...
   (``--parity`` on any of them: f32 and the kornia photometric chain;
-  ``--resume`` continues a run in the same ``--work_dir``)
+  ``--resume`` continues a run in the same ``--work_dir``;
+  ``--extra fuse_forwards=true`` on a self-training preset)
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import os
 
 from .. import resolve_device
 from ..train.build import (TRAIN_STAGES, build_experiment, check_model_config,
-                           make_step_config)
+                           export_state_role_keyed, make_step_config)
 from ..train.loop import run_training
 from ..utils.checkpoint import restore_train_state, save_train_state
 from .common import base_parser, get_config, refuse_multi_device
@@ -86,8 +90,9 @@ def main(argv=None, force_stage: str | None = None):
         print(f"resumed from {ckpt_final} at step {state.step}", flush=True)
 
     def on_best(state, i, miou):
+        export_state_role_keyed(state, os.path.join(args.work_dir, "weights"))
         save_train_state(os.path.join(args.work_dir, "ckpt_best"), state)
-        print(f"saved best checkpoint at step {i} (mIoU {miou:.4f})", flush=True)
+        print(f"saved best weights and checkpoint at step {i} (mIoU {miou:.4f})", flush=True)
 
     result = run_training(cfg, state, step, eval_apply, work_dir=args.work_dir, device=device,
                           num_steps=args.num_steps, eval_limit=args.eval_limit, on_best=on_best,

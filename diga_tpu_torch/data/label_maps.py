@@ -123,3 +123,14 @@ def make_png_palette(colors: np.ndarray) -> list[int]:
     flat = list(np.asarray(colors, dtype=np.uint8).reshape(-1))
     flat += [0] * (256 * 3 - len(flat))
     return [int(x) for x in flat]
+
+
+def decode_segmap(label_img: np.ndarray, colors: np.ndarray = CITYSCAPES_COLORS_19) -> np.ndarray:
+    """TrainId map -> float RGB in [0, 1], (H, W) or (B, H, W); ids past the
+    colour table keep the reference's id/255 grey, so ignore (255) renders
+    white (reference CityLoader.decode_segmap, :140-157)."""
+    ids = np.asarray(label_img).astype(np.int64)
+    table = np.zeros((256, 3), dtype=np.float64)
+    table[: len(colors)] = np.asarray(colors, dtype=np.float64) / 255.0
+    table[len(colors):] = (np.arange(len(colors), 256, dtype=np.float64) / 255.0)[:, None]
+    return table[np.clip(ids, 0, 255)]

@@ -149,11 +149,6 @@ def make_schedule(cfg: ExperimentConfig) -> Callable[[int], float]:
     return poly_schedule(t.learning_rate, t.num_steps, t.power)
 
 
-# extra knobs of the JAX StepConfig whose code paths are not ported yet
-_NOT_PORTED = {
-    "fuse_forwards": "the self-training throughput mode, not parity-exact, ROADMAP queue A "
-                     "item 9",
-}
 TRAIN_STAGES = ("warmup", "dg", "selftrain")
 
 
@@ -164,9 +159,6 @@ def make_step_config(cfg: ExperimentConfig) -> StepConfig:
         raise ValueError(f"seg_loss {t.seg_loss!r}: expected 'ce' or 'ohem'")
     if photometric not in ("diga", "kornia"):
         raise ValueError(f"--extra photometric={photometric!r}: expected 'diga' or 'kornia'")
-    for key, where in _NOT_PORTED.items():
-        if cfg.extra.get(key):
-            raise NotImplementedError(f"--extra {key} is not ported yet ({where})")
     return StepConfig(
         num_classes=t.num_classes,
         crop_hw=tuple(t.crop_hw),
@@ -186,6 +178,8 @@ def make_step_config(cfg: ExperimentConfig) -> StepConfig:
         aux_weight=cfg.extra.get("aux_weight", 0.0),
         rgb_input=cfg.extra.get("rgb_input", False),
         use_crdomix=not cfg.extra.get("no_translator", False),
+        # the self-training throughput mode, off unless asked for (:97)
+        fuse_forwards=bool(cfg.extra.get("fuse_forwards", False)),
         compute_dtype=compute_dtype(cfg),
     )
 

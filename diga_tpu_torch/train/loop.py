@@ -1,19 +1,23 @@
-"""The training loop: loaders -> step -> log -> eval -> export.
+"""The training loop: loaders -> device prefetch -> step -> log -> eval.
 
 Counterpart of ``diga_tpu/train/loop.py`` (:40-312) on one device:
   * the dual-scale multi-stream batches (the reference's small + full
     loader pairs, train_DiGA_gta2city_warm_up.py:117-136), built by host
-    threads and copied to the device each step;
+    threads and copied to the device two batches ahead of the step
+    (``data/prefetch.py::device_prefetch``, JAX :240);
   * the loop starts at ``state.step``, so a restored state resumes where
     it stopped (``diga_tpu/train/loop.py:248``);
   * in-loop two-scale eval every ``eval_every`` steps through
-    ``TwoScaleEvaluator``, exporting the student/teacher to
-    ``<work_dir>/weights`` on each new best mIoU, as the JAX trainer's
-    ``on_best`` does (``diga_tpu/cli/train_seg.py:95-105``; reference
-    :343-373), then calling the caller's ``on_best``: a run with no eval,
-    or none above mIoU 0, writes no ``weights``;
+    ``TwoScaleEvaluator``, calling the caller's ``on_best`` on each new
+    best mIoU (the CLI's ``on_best`` writes ``<work_dir>/weights`` and
+    ``ckpt_best``, ``diga_tpu/cli/train_seg.py:95-105``; reference
+    :343-373): a run with no eval, or none above mIoU 0, never calls it;
   * a full-state checkpoint to ``save_path`` every ``save_every`` steps,
-    written in the background and joined at the end (``:274-276,306-309``).
+    written in the background and joined at the end (``:274-276,306-309``);
+  * ``profile_steps=(start, stop)``: a ``torch.profiler`` trace of those
+    steps, CPU and CUDA, in ``<work_dir>/profile``; ``viz_every``: the
+    train-view grids in ``<work_dir>/views`` (``:199-205,250-263``); the
+    loss and mIoU curve PNGs beside ``metrics.jsonl`` at the end (:310).
 The caller writes the final state (``ckpt_final``).  The translator
 stage's two-stream iterator is ``make_translator_iterator``.
 """
@@ -41,10 +45,12 @@ from ..data import (
     synthia_dataset,
 )
 from ..data.loader import BatchLoader
+from ..data.prefetch import device_prefetch
 from ..eval.evaluator import TwoScaleEvaluator, iter_val
 from ..utils.checkpoint import save_train_state, wait_for_checkpoints
 from ..utils.logging import MetricLogger
-from .build import export_state_role_keyed, wants_target
+from ..utils.visualize import dump_train_views
+from .build import wants_target
 from .state import SegTrainState
 
 
@@ -167,28 +173,67 @@ class TrainLoopResult:
     last_metrics: dict
 
 
+def _start_profile(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, device: torch.device, out_dir: str) -> None:
+    """Stop the trace and write it (``trace.json``, for Perfetto or
+    chrome://tracing) with its op table (``ops.txt``) into ``out_dir``."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    sort = "self_cuda_time_total" if device.type == "cuda" else "self_cpu_time_total"
+    with open(os.path.join(out_dir, "ops.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by=sort, row_limit=80))
+    print(f"profile trace in {out_dir}", flush=True)
+
+
 def run_training(cfg: ExperimentConfig, state: SegTrainState, step_fn: Callable,
                  eval_apply: Callable | None, work_dir: str, device: torch.device,
                  num_steps: int | None = None, eval_limit: int | None = None,
                  log_every: int = 50,
                  on_best: Callable[[SegTrainState, int, float], None] | None = None,
-                 save_every: int = 0, save_path: str | None = None) -> TrainLoopResult:
-    """Sample, step, log, eval from ``state.step`` to the last step; export
-    the best weights to ``<work_dir>/weights`` and call ``on_best(state, i,
-    miou)``; a background full-state save to ``save_path`` at every
-    ``i > 0`` divisible by ``save_every`` (0 = none)."""
+                 save_every: int = 0, save_path: str | None = None,
+                 profile_steps: tuple[int, int] | None = None,
+                 viz_every: int = 0) -> TrainLoopResult:
+    """Sample, step, log, eval from ``state.step`` to the last step; call
+    ``on_best(state, i, miou)`` on each new best mIoU; a background
+    full-state save to ``save_path`` at every ``i > 0`` divisible by
+    ``save_every`` (0 = none); a profiler trace of steps ``profile_steps``
+    (both included) and train-view grids every ``viz_every`` steps."""
     logger = MetricLogger(work_dir)
     steps = num_steps if num_steps is not None else cfg.train.num_steps
-    it, loaders = make_train_iterator(cfg, wants_target(cfg))
+    host_it, loaders = make_train_iterator(cfg, wants_target(cfg))
+    it = device_prefetch(host_it, device, buffer_size=2)
     best_miou, best_step = 0.0, 0
     metrics: dict = {}
     evaluator = None
+    prof = None
     t_last = time.time()
     try:
         for i in range(state.step, steps):
-            batch = to_device(next(it), device)
+            if profile_steps and i == profile_steps[0]:
+                prof = _start_profile(device)
+            batch = next(it)
             batch.pop("t_lbl", None)
             metrics = step_fn(state, batch)
+            if prof is not None and i == profile_steps[1]:
+                _stop_profile(prof, device, os.path.join(work_dir, "profile"))
+                prof = None
+            if viz_every and i % viz_every == 0:
+                dump_train_views(os.path.join(work_dir, "views"), i,
+                                 {"source": batch["s_img"][:2].cpu().numpy()},
+                                 {"label": batch["s_lbl"][:2].cpu().numpy()})
             if save_every and save_path and i > 0 and i % save_every == 0:
                 save_train_state(save_path, state, background=True)
             if i % log_every == 0:
@@ -213,11 +258,15 @@ def run_training(cfg: ExperimentConfig, state: SegTrainState, step_fn: Callable,
                 print(f"step {i}: val mIoU {miou:.4f}", flush=True)
                 if miou > best_miou:
                     best_miou, best_step = miou, i
-                    export_state_role_keyed(state, os.path.join(work_dir, "weights"))
-                    print(f"saved best weights at step {i} (mIoU {miou:.4f})", flush=True)
                     if on_best is not None:
                         on_best(state, i, miou)
+        if prof is not None:  # the run ended inside the profiled window
+            _stop_profile(prof, device, os.path.join(work_dir, "profile"))
+            prof = None
+        logger.plot()
     finally:
+        if prof is not None:
+            prof.stop()
         for ld in loaders:
             ld.stop()
         logger.close()

@@ -89,6 +89,12 @@ class StepConfig:
     # the self-training step's second view: CrDoMix with the frozen
     # translator, or the photometric view itself (semiseg, :260)
     use_crdomix: bool = True
+    # self-training throughput mode (diga_tpu StepConfig.fuse_forwards):
+    # one teacher forward over [source; view; target] and one student
+    # forward over [source; view; DACS image].  Train-mode BN then
+    # normalizes with, and updates its running statistics from, the pooled
+    # batch, so the mode is not parity-exact against the unfused step.
+    fuse_forwards: bool = False
     compute_dtype: torch.dtype = torch.bfloat16
 
 
@@ -237,7 +243,9 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
          itself, and no CrDoMix selection is drawn;
       4. the teacher on [source; mix], then on the target, in train mode
          under ``no_grad``: its BN statistics chain through both forwards,
-         and its GroupNorm runs on the kernel B2a/B2b on the card;
+         and its GroupNorm runs on the kernel B2a/B2b on the card; with
+         ``fuse_forwards`` one forward over [source; mix; target], split
+         at the target's batch (JAX :305-316);
       5. the centroid weights of the teacher's target features, upsampled
          to the crop, and the bilateral consensus against ``t_pseudo``;
       6. DACS: source classes pasted into the target's photometric view,
@@ -245,14 +253,15 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
       7. the centroid update from the target, then from the source's mix
          half, both in EMA mode;
       8. the student on [source; mix], then on the DACS image, its BN
-         statistics chained;
+         statistics chained; with ``fuse_forwards`` one forward over
+         [source; mix; DACS image], split at the DACS batch (:354-361);
       9. loss = lambda_seg x (the segmentation loss on the source + on the
          DACS image) + lambda_distil x
          the distillation against the teacher's [source; mix] logits, with
          no aux term whatever ``aux_weight`` says (JAX's has none, :353-380);
      10. the SGD step.
-    The JAX package's opt-in ``fuse_forwards`` throughput mode is not
-    ported (``train/build.py`` refuses it).
+    A fused forward draws its dropout masks once, from the model's own
+    generator, as the JAX step draws one key per fused forward.
     """
 
     def step(state: SegTrainState, batch: dict, *, selection: torch.Tensor | None = None,
@@ -273,8 +282,15 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
 
         with torch.no_grad():
             with amp:
-                _, _, st_logits, st_feat = state.teacher(_model_input(cfg, s_cat))
-                _, _, tt_logits, tt_feat = state.teacher(_model_input(cfg, t_img))
+                if cfg.fuse_forwards:
+                    nt = t_img.shape[0]
+                    _, _, a_logits, a_feat = state.teacher(
+                        _model_input(cfg, torch.cat([s_cat, t_img], dim=0)))
+                    st_logits, tt_logits = a_logits[:-nt], a_logits[-nt:]
+                    st_feat, tt_feat = a_feat[:-nt], a_feat[-nt:]
+                else:
+                    _, _, st_logits, st_feat = state.teacher(_model_input(cfg, s_cat))
+                    _, _, tt_logits, tt_feat = state.teacher(_model_input(cfg, t_img))
             st_logits, st_feat = _nhwc(st_logits), _nhwc(st_feat)
             tt_logits, tt_feat = _nhwc(tt_logits), _nhwc(tt_feat)
             st_up = resize_bilinear(st_logits, cfg.crop_hw)
@@ -293,8 +309,13 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
             cents = prototypes.update_centroids(cents, vec_s, ok_s, start_mean=False)
 
         with amp:
-            s_up = _logits_up(cfg, state.student, s_cat)
-            cross_up = _logits_up(cfg, state.student, cross_img)
+            if cfg.fuse_forwards:
+                nc = cross_img.shape[0]
+                f_up = _logits_up(cfg, state.student, torch.cat([s_cat, cross_img], dim=0))
+                s_up, cross_up = f_up[:-nc], f_up[-nc:]
+            else:
+                s_up = _logits_up(cfg, state.student, s_cat)
+                cross_up = _logits_up(cfg, state.student, cross_img)
             seg_loss = _seg_loss_fn(cfg)
             ce = seg_loss(s_up[:b], s_lbl)
             ce_cross = seg_loss(cross_up, cross_lbl)

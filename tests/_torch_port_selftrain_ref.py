@@ -2,8 +2,10 @@
 
     python tests/_torch_port_selftrain_ref.py OUT_DIR [VARIANT]
 
-VARIANT is a key of ``VARIANTS``: ``gta`` (the default: 19 classes, CE)
-or ``synthia`` (16 classes, OHEM on the source and the DACS image).
+VARIANT is a key of ``VARIANTS``: ``gta`` (the default: 19 classes, CE),
+``synthia`` (16 classes, OHEM on the source and the DACS image) or
+``gta_fused`` (``gta`` with ``fuse_forwards``: one teacher and one student
+forward a step over the concatenated batches).
 
 Builds the jitted ``diga_tpu`` self-training step by the composed-parity
 recipe (tiny depth, f32, ``beta=0``, ``droprate=0``, frozen BN biases at
@@ -42,7 +44,9 @@ TRANSLATOR = {"enc": dict(dim=8, n_downsample=2, n_res=1),
 # backbone (at 0, one ReLU input of the d24 branch sat within f32 rounding
 # of 0 and flipped between the packages at step 0)
 VARIANTS = {"gta": {"num_classes": K, "step": {}, "aspp_gn_bias": None},
-            "synthia": {"num_classes": 16, "step": {"seg_loss": "ohem"}, "aspp_gn_bias": 4.0}}
+            "synthia": {"num_classes": 16, "step": {"seg_loss": "ohem"}, "aspp_gn_bias": 4.0},
+            "gta_fused": {"num_classes": K, "step": {"fuse_forwards": True},
+                          "aspp_gn_bias": None}}
 
 
 def make_batch(i: int, num_classes: int = K) -> dict:

@@ -97,7 +97,11 @@ def test_port_imports_no_jax_and_no_reference_package():
         " or m.split('.')[0] in ('flax', 'optax', 'orbax')"
         " or m == 'diga_tpu' or m.startswith('diga_tpu.'))\n"
         "new = {'diga_tpu_torch.ops.subpixel', 'diga_tpu_torch.models.vgg',"
-        " 'diga_tpu_torch.train.steps_translator', 'diga_tpu_torch.cli.train_domain_translator'}\n"
+        " 'diga_tpu_torch.train.steps_translator', 'diga_tpu_torch.cli.train_domain_translator',"
+        " 'diga_tpu_torch.data.prefetch', 'diga_tpu_torch.utils.visualize',"
+        " 'diga_tpu_torch.utils.synth', 'diga_tpu_torch.utils.profiling',"
+        " 'diga_tpu_torch.cli.profile_step', 'diga_tpu_torch.models.torch_replay',"
+        " 'diga_tpu_torch.cli.parity_check', 'diga_tpu_torch.cli.make_lists'}\n"
         "print(len(mods), bad, sorted(new - set(mods)))\n"
         "sys.exit(1 if bad or new - set(mods) or len(mods) < 50 else 0)\n"
     )

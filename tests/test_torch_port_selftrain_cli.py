@@ -17,8 +17,11 @@ are registered in both packages' preset registries; the port runs with
   full state in ``ckpt_final`` (no eval, so no ``weights``) whose
   ``student.pth``/``teacher.pth`` load strictly;
 * ``train_dg``, 2 steps, likewise;
-* without ``--device cpu`` each raises here, and ``--extra
-  fuse_forwards=true`` and ``--pretrained_backbone auto`` are refused.
+* ``train_self_training --extra fuse_forwards=true``, 2 steps: the same
+  checks (its step is held against JAX's fused step in
+  tests/test_torch_port_fuse_forwards.py);
+* without ``--device cpu`` each raises here, and ``--pretrained_backbone
+  auto`` and the translator preset are refused.
 """
 
 import dataclasses
@@ -189,6 +192,26 @@ def test_train_self_training_on_the_ports_own_pseudo_labels_and_centroids(chain,
     model.load_state_dict(torch.load(os.path.join(final, "teacher.pth")), strict=True)
 
 
+def test_train_self_training_fused_two_steps(chain, capsys):
+    pseudo = os.path.join(chain["city"], "pseudo_train_warm_up")
+    if not os.path.isdir(pseudo):
+        _pseudo(chain, pseudo, pseudolabel_generator, "--device", "cpu")
+    capsys.readouterr()
+    wd = str(chain["tmp"] / "st_fused")
+    result = train_self_training.main(
+        ["--preset", "tiny_chain_st", "--work_dir", wd, "--load_weight_dir", chain["wdir"],
+         "--extra", "fuse_forwards=true", "--device", "cpu", *chain["data"]])
+    logged = _losses(capsys.readouterr().out)
+    metrics = {"loss", "loss_semseg", "loss_crossmix", "loss_distil", "consensus_kept"}
+    assert len(logged) == 1 and metrics <= set(logged[0])
+    assert set(result.last_metrics) == metrics
+    for m in (logged[0], result.last_metrics):
+        assert all(math.isfinite(m[k]) for k in metrics)
+        assert 0.0 <= m["consensus_kept"] <= 1.0
+    assert not os.path.exists(os.path.join(wd, "weights"))  # no eval, so no best weights
+    assert torch.load(os.path.join(wd, "ckpt_final", "state.pth"))["step"] == 2
+
+
 def test_train_dg_two_steps(chain, capsys):
     wd = str(chain["tmp"] / "dg")
     result = train_dg.main(["--preset", "tiny_chain_dg", "--work_dir", wd, "--device", "cpu",
@@ -222,8 +245,7 @@ def test_new_clis_default_to_the_card(chain, cli):
         cli.main(_argv(chain, cli))
 
 
-@pytest.mark.parametrize("flags", [["--extra", "fuse_forwards=true"],
-                                   ["--pretrained_backbone", "auto"],
+@pytest.mark.parametrize("flags", [["--pretrained_backbone", "auto"],
                                    ["--preset", "gta2city_translator"]])
 def test_self_training_refusals(chain, flags, capsys):
     with pytest.raises(SystemExit):

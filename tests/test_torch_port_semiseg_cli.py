@@ -23,7 +23,9 @@ with ``--device cpu``:
   the RGB-flipped input;
 * a save after one step restores into a fresh state that continues bit for
   bit (the tiny semiseg warm-up, dropout on);
-* the JAX HRNet's TPU knobs and ``fuse_forwards`` are refused by name.
+* the JAX HRNet's TPU knobs are refused by name;
+* ``train_self_training --extra fuse_forwards=true`` runs 2 steps with the
+  same checks.
 """
 
 import contextlib
@@ -355,11 +357,18 @@ def test_save_restore_continues_bit_for_bit(chain, tmp_path):
     assert all(torch.equal(a[k], b[k]) for k in a), [k for k in a if not torch.equal(a[k], b[k])]
 
 
-@pytest.mark.parametrize("extra", ["hrnet_pad=64", "remat_policy=bn_stats", "remat=true",
-                                   "fuse_forwards=true"])
+@pytest.mark.parametrize("extra", ["hrnet_pad=64", "remat_policy=bn_stats", "remat=true"])
 def test_tpu_knobs_and_fuse_forwards_are_refused(chain, extra, capsys):
     with pytest.raises(SystemExit):
         train_self_training.main(["--preset", "tiny_semiseg_selftrain", "--work_dir",
                                   str(chain["tmp"] / "x"), "--device", "cpu",
                                   "--extra", extra, *chain["data"]])
     assert f"--extra {extra.split('=')[0]}" in capsys.readouterr().err
+
+
+def test_self_training_fused_two_steps(chain, warm, pseudo_labels):
+    _train(train_self_training,
+           ["--preset", "tiny_semiseg_selftrain", "--load_weight_dir", warm,
+            "--extra", "fuse_forwards=true", *chain["data"]],
+           str(chain["tmp"] / "selftrain_fused"),
+           {"loss", "loss_semseg", "loss_crossmix", "loss_distil", "consensus_kept"})
