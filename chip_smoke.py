@@ -12,14 +12,17 @@ weights (``pseudolabel_generator`` -> ``calc_centroids`` ->
 ``train_self_training``), the DG stage (``train_dg``), the
 SYNTHIA->Cityscapes chain at 16 classes, a ``--parity`` warm-up, the
 translator stage (``train_domain_translator``), a resumed warm-up, and the
-semi-supervised Cityscapes chain on HRNet-W48+OCR; and the tools of
-slice 10: ``profile_step``, the loop's device prefetch, the fused
-self-training step (``--extra fuse_forwards=true``) and ``parity_check``
-against the replay oracle.
+semi-supervised Cityscapes chain on HRNet-W48+OCR; ``profile_step`` (with
+``--components``), the loop's device prefetch, the fused self-training step
+(``--extra fuse_forwards=true``), ``parity_check`` against the replay
+oracle, the loaders' C host ops, ``make_viz`` and three soaks.
 Phases, any failure of which exits non-zero:
 
   1. device: require CUDA; print the card's name and power limit
-  2. build: nvcc every kernel source, all at once (``-Xptxas -v`` lines)
+  2. build: nvcc every kernel source, all at once (``-Xptxas -v`` lines),
+     and g++ the loaders' C host ops (``csrc/host_ops.cpp``); each host op
+     bit-equal to its numpy form on one 1024x2048 image and label, with
+     both host times
   3. GroupNorm kernels (B2a/B2b) against their plain versions on the card,
      f32 (1e-5) and bf16 (3e-2), at the paths' shapes (the eval's
      (1, 129, 257, 256) and (1, 65, 129, 256), the teachers' (6, 65, 113,
@@ -55,7 +58,9 @@ Phases, any failure of which exits non-zero:
   4b. profile_step (gta2city_warmup at full width, a synthetic batch, 2
      warm-up, 2 timed and 2 traced steps), the process's first profiler
      use: its report has device time in the distill and group_norm
-     families and names the distill_* and gn_* kernels
+     families and names the distill_* and gn_* kernels; with
+     ``--components`` at most 5 % of the device time unmatched, B1 in
+     ``loss_resize`` and B2 in ``model_fwd``
   5. main path, eval: full-width R101 (random weights from a numpy seed,
      saved as student.pth), two synthetic 1024x2048 Cityscapes val images,
      evaluate_val in bf16; finite two-scale logits whose argmax matches the
@@ -74,7 +79,9 @@ Phases, any failure of which exits non-zero:
      through device_prefetch in turns, 6 steps each (wall ms/step, the
      host's wait for its batch); then 20 steps fed from the loader through
      device_prefetch, each batch copied back to pinned host memory after
-     its step and required equal to its host copy
+     its step and required equal to its host copy; the loader alone with
+     the C host ops and with their numpy forms, beside the numpy ops'
+     0.216 s/batch and 515.35 ms/step of an earlier run
   7. main paths, self-training chain and DG, at full width from the
      warm-up's last-step state (``ckpt_final``: 3 steps with no eval
      write no best ``weights``), on two 1024x2048 Cityscapes train images:
@@ -84,7 +91,8 @@ Phases, any failure of which exits non-zero:
      gta2city_selftrain: source 2 + 1, target 2 + 1 with the pseudo-labels,
      3 steps) logs finite losses and a consensus_kept in [0, 1]; train_dg
      (preset dg_gta5: source 2 + 2, target 2 + 2, 3 steps).  Then the
-     pseudo-label ms/img and the self-training and DG steps timed as in 6
+     pseudo-label ms/img and the self-training and DG steps timed as in 6;
+     ``make_viz figure`` over the 2 pseudo-label PNGs (host only, no launch)
   7b. train_self_training --extra fuse_forwards=true (3 steps, from the
      warm-up's state): one teacher forward a step, every GroupNorm at (9,
      65, 113, 256); finite losses, consensus_kept in [0, 1].  Then the
@@ -135,7 +143,16 @@ Phases, any failure of which exits non-zero:
      and the warm-up and self-training steps timed as in 6, beside the
      compute floor counted from the code (``hrnet_ocr_gmacs``), and the
      self-training step fused against unfused as in 7b (one fused step
-     launches B1 once and no B2)
+     launches B1 once and no B2), and the unfused step with its profiler
+     scopes switched off, in turns with it, beside the scopes' count a step
+     and their host cost alone
+  8d. soaks through ``soak``'s CLI, each asserting its own invariants:
+     ``--mode onchip --preset gta2city_warmup`` at full width
+     (``SOAK_ONCHIP_STEPS``), ``--preset dg_gta5`` on 96x160 fixtures at
+     R101's full depth (``SOAK_FIXTURE_STEPS``: the mid-run checkpoint
+     restored into a fresh experiment, in-loop evals of 4 images) and
+     ``--mode onchip --preset gta2city_translator``
+     (``SOAK_TRANSLATOR_STEPS``); ms/step and source imgs/s of each
   9. kernel timing: per-site GroupNorm and distillation device times
      (CUDA events around back-to-back calls queued behind a sleep kernel)
      against their byte bounds, plain versions and nearest library calls
@@ -160,14 +177,18 @@ OCR aux logits), train_self_training (3 steps) 3, 3, 0, 0, and its
 pseudolabel_generator, calc_centroids and evaluate_val 0, 0, 0, 0
 (HRNet+OCR has no GroupNorm); profile_step (6 steps) 6, 6, 36, 36; the
 fused train_self_training (3 steps) 3, 3, 18, 18; parity_check 0, 0, 30,
-30 (6 for the activation input, 2 images x 2 scales x 6).  On a train path every B1a launch must be
+30 (6 for the activation input, 2 images x 2 scales x 6); the onchip
+warm-up soak (N steps) N, N, 6N, 6N; the DG fixture soak (N steps, E
+evals) N, N, 6N + 48E, 6N + 48E (4 val images x 2 scales x 6); the
+onchip translator soak 0, 0, 0, 0.  On a train path every B1a launch must be
 at its site: bf16 (6, 512, 896, 19) for the GTA5 warm-ups and
 self-training, (8, 512, 896, 19) for DG, (8, 512, 896, 16) and (6, 512,
 896, 16) for the SYNTHIA warm-up and self-training, f32 (6, 512, 896, 19)
 under --parity, bf16 (6, 512, 1024, 19) for the semiseg warm-up and
 self-training, bf16 (6, 512, 896, 19) for profile_step and the fused
-self-training; every GroupNorm of the fused self-training at (9, 65, 113,
-256), of profile_step at (6, 65, 113, 256), of parity_check at (1, 17, 29,
+self-training, bf16 (8, 64, 128, 19) for the DG fixture soak; every
+GroupNorm of the fused self-training at (9, 65, 113, 256), of profile_step
+and the onchip warm-up soak at (6, 65, 113, 256), of parity_check at (1, 17, 29,
 256), (1, 129, 257, 256) and (1, 65, 129, 256).  A kernel's
 ``launches`` in the JSON line is its sum over these runs.
 
@@ -199,17 +220,19 @@ import torch
 import torch.nn.functional as F
 from PIL import Image
 
-from diga_tpu_torch.cli import (calc_centroids, evaluate_val, parity_check, pseudolabel_generator,
-                                train_dg, train_domain_translator, train_self_training,
-                                train_warm_up)
+from diga_tpu_torch.cli import (calc_centroids, evaluate_val, make_viz, parity_check,
+                                pseudolabel_generator, soak, train_dg, train_domain_translator,
+                                train_self_training, train_warm_up)
 from diga_tpu_torch.cli import profile_step as profile_step_cli
 from diga_tpu_torch.configs.presets import get_preset
-from diga_tpu_torch.data import cityscapes_dataset, synthetic
+from diga_tpu_torch.data import cityscapes_dataset, label_maps, synthetic
+from diga_tpu_torch.data.normalize import IMG_MEAN_BGR, normalize_image
 from diga_tpu_torch.data.prefetch import device_prefetch
 from diga_tpu_torch.eval.evaluator import two_scale_logits
 from diga_tpu_torch.models import resnet_deeplab
 from diga_tpu_torch.models.hrnet_ocr import HRNetOCR
 from diga_tpu_torch.models.resnet_deeplab import DeepLabV2
+from diga_tpu_torch.models import translator as translator_module
 from diga_tpu_torch.models.translator import ImgDecoder, ImgEncoder
 from diga_tpu_torch.models.vgg import VGG19Features
 from diga_tpu_torch.ops import distill as D
@@ -225,9 +248,12 @@ from diga_tpu_torch.train.loop import make_train_iterator, make_translator_itera
 from diga_tpu_torch.train.optim import sgd_grouped
 from diga_tpu_torch.train.schedules import poly_schedule
 from diga_tpu_torch.train.state import create_seg_state
+from diga_tpu_torch.train import steps as steps_module
+from diga_tpu_torch.train import steps_translator as steps_translator_module
 from diga_tpu_torch.train.steps import (StepConfig, build_dg_step, build_selftrain_step,
                                         build_warmup_step)
 from diga_tpu_torch.train.steps_translator import ROLES, build_translator_step
+from diga_tpu_torch.utils import native as host_ops
 from diga_tpu_torch.utils.checkpoint import export_role_keyed
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
@@ -301,14 +327,24 @@ PARITY_LAYERS = [1, 1, 1, 1]  # the --parity warm-up's depth: R101's widths, one
 TRAIN_PATHS = ("train_warm_up", "train_self_training", "train_dg", "synthia train_warm_up",
                "synthia train_self_training", "parity train_warm_up",
                "translated train_warm_up", "resume train_warm_up", "resumed train_warm_up",
-               "fused train_self_training", "profile_step")
+               "fused train_self_training", "profile_step", "soak onchip gta2city_warmup",
+               "soak fixtures dg_gta5")
 PREFETCH_BATCHES = 20  # prefetched batches held equal to their host copies under real steps
 PROFILE_STEPS = 2  # profile_step's traced (and untraced timed) steps, after its 2 warm-up steps
 TRANSLATOR_STEPS = 3
 TRANSLATOR_SHORT_STEPS = 2  # the SYNTHIA and the VGG translator runs
 # the translator stage reaches no TPU kernel: each run must launch none
 TRANSLATOR_PATHS = ("train_domain_translator", "synthia train_domain_translator",
-                    "vgg train_domain_translator")
+                    "vgg train_domain_translator", "soak onchip gta2city_translator")
+# the soaks' steps: the fewest at which each one's invariants hold with margin (a
+# step-by-step probe on the card: the onchip warm-up's loss falls from 5.23 to 4.15 by
+# step 9, the translator's self-recon L1 from 0.996 to 0.901 by step 11, and the DG
+# fixture soak's loss windows from 4.52 to 4.39 at 40 steps)
+SOAK_ONCHIP_STEPS = 12
+SOAK_FIXTURE_STEPS = 40
+SOAK_TRANSLATOR_STEPS = 12
+# phase 6b with the numpy host ops (an earlier run, NVIDIA H100 80GB HBM3, 700 W)
+NUMPY_OPS_LOADER_S, NUMPY_OPS_LOADER_FED_MS = 0.216, 515.35
 # HRNet+OCR has no GroupNorm: its train paths launch B1 only, its eval paths nothing
 SEMISEG_TRAIN_PATHS = ("semiseg train_warm_up", "semiseg train_self_training")
 SEMISEG_EVAL_PATHS = ("semiseg pseudolabel_generator", "semiseg calc_centroids",
@@ -428,6 +464,46 @@ def phase_build() -> None:
             if "ptxas info" in line or "spill" in line:
                 print(f"ptxas[{name}]: {line.strip()}")
     print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    host_ops.build()
+    print(f"build: {os.path.relpath(host_ops.LIBRARY)} (g++) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def phase_host_ops(card: str) -> dict:
+    """The C host ops of the loaders held bit-equal to their numpy forms on
+    one 1024x2048 image and label (the BN-statistics target's size), with
+    each one's host ms (the best of 5) beside numpy's."""
+    rng = np.random.default_rng(SEED)
+    img = rng.integers(0, 256, size=(*OUT_HW, 3), dtype=np.uint8)
+    lbl = rng.integers(0, 256, size=OUT_HW, dtype=np.uint8)
+    gt = host_ops.remap_u8(lbl, label_maps.CITYSCAPES_LUT).astype(np.int32)
+    pred = rng.integers(-1, 21, size=OUT_HW).astype(np.int32)
+    pairs = {
+        "normalize_bgr": (host_ops.normalize_bgr, normalize_image, (img, IMG_MEAN_BGR)),
+        "remap_u8": (host_ops.remap_u8, label_maps.remap_labels, (lbl, label_maps.GTA5_LUT)),
+        "fast_hist": (host_ops.fast_hist, host_ops.fast_hist_plain, (gt, pred, 19)),
+        "label_histogram": (host_ops.label_histogram, host_ops.label_histogram_plain, (lbl,)),
+    }
+
+    def best_ms(fn, args) -> float:
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn(*args)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    out = {}
+    for name, (c_op, plain, args) in pairs.items():
+        a, b = c_op(*args), plain(*args)
+        require(a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(),
+                f"host op {name}: the C op differs from its numpy form")
+        out[name] = (best_ms(c_op, args), best_ms(plain, args))
+    print(f"host ops at {OUT_HW[0]}x{OUT_HW[1]}, bit-equal to numpy; host ms C / numpy: "
+          + ", ".join(f"{k} {c:.2f} / {p:.2f}" for k, (c, p) in out.items())
+          + f" | card={card}", flush=True)
+    return out
 
 
 def phase_kernels_vs_plain() -> dict:
@@ -615,7 +691,7 @@ def device_time_us(events) -> float:
     from torch.autograd import DeviceType
 
     return sum(getattr(e, "self_device_time_total", 0.0) for e in events
-               if e.device_type == DeviceType.CUDA)
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
 
 
 def time_us(fn, arg_sets, iters: int = 100) -> tuple[float, float]:
@@ -1498,7 +1574,7 @@ def phase_profile_step(work: str, card: str) -> dict:
     with contextlib.redirect_stdout(Tee(sys.stdout, out)):
         rep, counts = run_path(
             "profile_step", profile_step_cli.main,
-            ["--preset", PRESET, "--steps", str(PROFILE_STEPS),
+            ["--preset", PRESET, "--steps", str(PROFILE_STEPS), "--components",
              "--trace_dir", os.path.join(work, "profile_step")],
             kernel_counts(n, 6 * n), (torch.bfloat16, DISTILL_SHAPE), {GN_TRAIN_SITES[0]})
     text = out.getvalue()
@@ -1516,6 +1592,19 @@ def phase_profile_step(work: str, card: str) -> dict:
           + json.dumps({k: round(v[0] / PROFILE_STEPS * 1e3, 3) for k, v in
                         sorted(rep.by_category.items(), key=lambda kv: -kv[1][0])})
           + f" ms/step; port kernels named {names} | card={card}", flush=True)
+    att = rep.components
+    share = att["unmatched"] / att["total"]
+    print(f"profile_step {PRESET} components, ms/step: "
+          + json.dumps({k: round(v * 1e3, 3) for k, v in att["components"].items()})
+          + f"; unmatched {att['unmatched'] * 1e3:.3f} ({share:.4f} of {att['total'] * 1e3:.2f}); "
+          f"port kernels by component (ms/step) "
+          + json.dumps({c: {f: round(t * 1e3, 4) for f, t in fam.items()}
+                        for c, fam in att["port_kernels"].items()}) + f" | card={card}", flush=True)
+    require(share <= 0.05, f"profile_step --components: {share:.3f} of the device time unmatched")
+    require("distill" in att["port_kernels"].get("loss_resize", {}),
+            f"profile_step --components: B1 not in loss_resize: {att['port_kernels']}")
+    require("group_norm" in att["port_kernels"].get("model_fwd", {}),
+            f"profile_step --components: B2 not in model_fwd: {att['port_kernels']}")
     return {"profile_step": counts}
 
 
@@ -1533,15 +1622,32 @@ def phase_prefetch(data_paths: dict, card: str) -> dict:
     step for its batch."""
     base = get_preset(PRESET)
     cfg = dataclasses.replace(base, data=dataclasses.replace(base.data, **data_paths))
-    it, loaders = make_train_iterator(cfg, with_target=True)
-    try:
-        next(it)  # the worker threads' start
-        t0 = time.perf_counter()
-        host = [next(it) for _ in range(6)]
-        loader_s = (time.perf_counter() - t0) / len(host)
-    finally:
-        for ld in loaders:
-            ld.stop()
+
+    def loader_alone() -> tuple[float, list]:
+        it, loaders = make_train_iterator(cfg, with_target=True)
+        try:
+            next(it)  # the worker threads' start
+            t0 = time.perf_counter()
+            batches = [next(it) for _ in range(6)]
+            return (time.perf_counter() - t0) / len(batches), batches
+        finally:
+            for ld in loaders:
+                ld.stop()
+
+    # the loader with the C host ops, then with their numpy forms (one pair:
+    # the two differed by less than the turns' spread, PERF.md §6)
+    loader_times = {"c": [], "numpy": []}
+    c_ops = host_ops.remap_u8, host_ops.normalize_bgr
+    for mode in ("c", "numpy"):
+        if mode == "numpy":
+            host_ops.remap_u8, host_ops.normalize_bgr = label_maps.remap_labels, normalize_image
+        try:
+            sec, host = loader_alone()
+        finally:
+            host_ops.remap_u8, host_ops.normalize_bgr = c_ops
+        loader_times[mode].append(sec)
+    loader_s = float(np.mean(loader_times["c"]))
+    loader_numpy_s = float(np.mean(loader_times["numpy"]))
     mb = sum(v.nbytes for v in host[0].values() if isinstance(v, np.ndarray)) / 1e6
     call_ms, copy_ms = [], []
     for b in host:
@@ -1599,7 +1705,8 @@ def phase_prefetch(data_paths: dict, card: str) -> dict:
         for k, v in want.items():
             require(np.array_equal(got[k].numpy(), v),
                     f"device_prefetch: batch {i} {k} on the card differs from its host copy")
-    out = {"loader_s_per_batch": loader_s, "to_device_call_ms": float(np.mean(call_ms)),
+    out = {"loader_s_per_batch": loader_s, "loader_numpy_s_per_batch": loader_numpy_s,
+           "to_device_call_ms": float(np.mean(call_ms)),
            "to_device_ms": float(np.mean(copy_ms)), "loader_fed_prefetch_ms_per_step": fed[0],
            "loader_fed_prefetch_wait_ms": fed[1]}
     for mode, runs in times.items():
@@ -1614,6 +1721,12 @@ def phase_prefetch(data_paths: dict, card: str) -> dict:
           f"loader through device_prefetch {fed[0]:.2f} ms/step (wait {fed[1]:.2f}), "
           f"{len(staged)} of {len(staged)} prefetched batches equal to their host copies "
           f"| card={card}", flush=True)
+    print(f"prefetch {PRESET} host ops: the loader alone {loader_s:.3f} s/batch with the C ops "
+          f"{[round(t, 3) for t in loader_times['c']]}, {loader_numpy_s:.3f} with their numpy "
+          f"forms {[round(t, 3) for t in loader_times['numpy']]} (the numpy ops, an "
+          f"earlier run: {NUMPY_OPS_LOADER_S} s/batch); loader-fed {fed[0]:.2f} ms/step (the "
+          f"numpy ops, an earlier run: {NUMPY_OPS_LOADER_FED_MS} ms/step) | card={card}",
+          flush=True)
     return out
 
 
@@ -1636,13 +1749,51 @@ def phase_fused_selftrain(work: str, chain: dict) -> dict:
     return {"fused train_self_training": counts}
 
 
+@contextlib.contextmanager
+def scopes_off(calls: list):
+    """Every profiler scope of the steps (``train/steps.py``,
+    ``train/steps_translator.py``, ``models/translator.py``) a no-op that
+    counts its entries in ``calls[0]``, as the CPU test
+    ``test_scopes_change_no_value`` switches them off."""
+    def off(name):
+        calls[0] += 1
+        return contextlib.nullcontext()
+
+    sites = [(steps_module, "scope"), (steps_translator_module, "scope"),
+             (translator_module, "record_function")]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr in sites]
+    for mod, attr in sites:
+        setattr(mod, attr, off)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def scope_host_us(n: int = 20000) -> float:
+    """Host µs of one ``record_function`` enter and exit with no profiler
+    running (the best of 3 loops of ``n``)."""
+    best = math.inf
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with torch.profiler.record_function("scope_cost"):
+                pass
+        best = min(best, (time.perf_counter() - t0) / n * 1e6)
+    return best
+
+
 def phase_fused_timing(preset: str, data_paths: dict, card: str, profile_dir: str | None,
-                       gn_per_step: int, **build_kw) -> dict:
+                       gn_per_step: int, unscoped: bool = False, **build_kw) -> dict:
     """ms/step of ``preset``'s self-training step on one batch on the card,
     fused (``fuse_forwards``) and unfused in turns (fused, unfused, unfused,
     fused) on one state; source imgs/s, peak memory, and under --profile
     the busy share of each.  One fused step must launch B1 once and B2
-    ``gn_per_step`` times."""
+    ``gn_per_step`` times.  With ``unscoped``, the unfused step also runs
+    with its profiler scopes switched off (``scopes_off``), in turns with
+    the scoped one (fused, unfused, unscoped, unscoped, unfused, fused),
+    beside the scopes' count per step and their host cost alone."""
     base = get_preset(preset)
     cfg = dataclasses.replace(base, data=dataclasses.replace(base.data, **data_paths))
     state, unfused, _ = build_experiment(cfg, DEVICE, **build_kw)
@@ -1663,15 +1814,19 @@ def phase_fused_timing(preset: str, data_paths: dict, card: str, profile_dir: st
     step_ms(state, fused, batch, 1)
     want = kernel_counts(1, gn_per_step)
     require(launches() == want, f"one fused {preset} step launched {launches()}, expected {want}")
-    times = {form: [] for form in steps}
-    peaks = {form: 0.0 for form in steps}
-    for form in ("fused", "unfused", "unfused", "fused"):
+    order = ("fused", "unfused", "unscoped", "unscoped", "unfused", "fused") if unscoped \
+        else ("fused", "unfused", "unfused", "fused")
+    times = {form: [] for form in dict.fromkeys(order)}
+    peaks = {form: 0.0 for form in times}
+    calls = [0]
+    for form in order:
         torch.cuda.reset_peak_memory_stats()
-        times[form].append(step_ms(state, steps[form], batch, 4))
+        with scopes_off(calls) if form == "unscoped" else contextlib.nullcontext():
+            times[form].append(step_ms(state, steps.get(form, unfused), batch, 4))
         peaks[form] = max(peaks[form], torch.cuda.max_memory_allocated() / 2**30)
     hrnet = cfg.extra.get("model") == "hrnet_ocr"
     out = {}
-    for form in steps:
+    for form in times:
         ms = float(np.mean(times[form]))
         out[form] = {"ms_per_step": ms, "peak_mem_GiB": peaks[form],
                      "imgs_per_sec": n_src / (ms / 1e3)}
@@ -1679,9 +1834,20 @@ def phase_fused_timing(preset: str, data_paths: dict, card: str, profile_dir: st
               f"source {n_src} + target {n_tgt} imgs crop {tuple(batch['s_img'].shape[1:3])}: "
               f"ms/step {ms:.2f} {times[form]} source imgs/s {out[form]['imgs_per_sec']:.2f} "
               f"peak_mem_GiB={peaks[form]:.2f} | card={card}", flush=True)
-        if profile_dir:
+        if profile_dir and form in steps:
             tag = f"{'semiseg_' if hrnet else ''}selftrain_{form}"
             out[form].update(profile_step(tag, state, steps[form], batch, ms, profile_dir))
+    scope_cost = {}
+    if unscoped:
+        per_step = calls[0] / (4 * len(times["unscoped"]))
+        us = scope_host_us()
+        scope_cost = {"ms_per_step_unscoped": out["unscoped"]["ms_per_step"],
+                      "scopes_per_step": per_step, "scope_host_us": us}
+        print(f"the steps' profiler scopes: {per_step:.0f} a step, {us:.3f} host us each "
+              f"alone ({per_step * us / 1e3:.4f} ms a step); unfused "
+              f"{out['unfused']['ms_per_step']:.2f} ms/step {times['unfused']} with them, "
+              f"{out['unscoped']['ms_per_step']:.2f} {times['unscoped']} without | card={card}",
+              flush=True)
     print(json.dumps({"metric": f"{preset}_fused_train_imgs_per_sec_per_chip",
                       "value": out["fused"]["imgs_per_sec"], "unit": "imgs/sec",
                       "ms_per_step": out["fused"]["ms_per_step"],
@@ -1690,7 +1856,7 @@ def phase_fused_timing(preset: str, data_paths: dict, card: str, profile_dir: st
                       "peak_mem_GiB_unfused": out["unfused"]["peak_mem_GiB"],
                       **({"busy_share": out["fused"]["busy_share"],
                           "busy_share_unfused": out["unfused"]["busy_share"]}
-                         if profile_dir else {}), "card": card}), flush=True)
+                         if profile_dir else {}), **scope_cost, "card": card}), flush=True)
     return out
 
 
@@ -1880,10 +2046,95 @@ def phase_semiseg(work: str, card: str, profile_dir: str | None) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     # the fused self-training step: B1 once a step, no B2 (HRNet+OCR has no GroupNorm)
-    phase_fused_timing(SEMISEG_SELFTRAIN_PRESET, paths, card, profile_dir, 0,
+    phase_fused_timing(SEMISEG_SELFTRAIN_PRESET, paths, card, profile_dir, 0, unscoped=True,
                        load_weight_dir=warm, centroid_path=centroid_path)
     gc.collect()
     torch.cuda.empty_cache()
+    return counts
+
+
+def phase_make_viz(work: str, chain: dict) -> None:
+    """make_viz figure over phase 7's pseudo-label PNGs (2 images): host only,
+    no kernel launched; each figure is the image and the colour-rendered
+    pseudo-labels side by side."""
+    data = chain["data"]
+    out_dir = os.path.join(work, "figures")
+    reset_launches()
+    t0 = time.perf_counter()
+    make_viz.main(["figure", "--img_root", os.path.join(data["target_root"], "leftImg8bit", "train"),
+                   "--img_list", data["target_img_list"], "--edges", "--out_dir", out_dir,
+                   "--pred_dirs", os.path.join(data["target_root"], PSEUDO_DIR)])
+    sec = time.perf_counter() - t0
+    written = sorted(os.path.join(out_dir, f) for f in os.listdir(out_dir))
+    require(all(v == 0 for v in launches().values()), f"make_viz launched kernels: {launches()}")
+    shapes = [np.asarray(Image.open(f)).shape for f in written]
+    require(len(written) == N_IMAGES and all(sh == (OUT_HW[0], 2 * OUT_HW[1] + 4, 3)
+                                              for sh in shapes),
+            f"make_viz figure: {written} {shapes}")
+    print(f"make_viz figure: {len(written)} figures {shapes[0]} over the pseudo-labels in "
+          f"{sec:.1f} s (host only, no launch)", flush=True)
+
+
+def source_batch(preset: str) -> int:
+    return sum(s.batch for s in get_preset(preset).data.source_streams)
+
+
+def _fixture_soak_rate(wd: str, batch: int) -> tuple[float, float]:
+    """(ms/step, source imgs/s) of a fixture soak from the loop's logged
+    steps/s after the resume (the median: an eval inflates its interval)."""
+    with open(os.path.join(wd, "metrics.jsonl")) as f:
+        rates = [r["steps_per_sec"] for r in map(json.loads, f) if "steps_per_sec" in r][1:]
+    sps = float(np.median(rates))
+    return 1e3 / sps, batch * sps
+
+
+def phase_soak(work: str, card: str) -> dict:
+    """Three soaks through ``soak``'s CLI: the onchip warm-up at full width
+    (device-generated batches of the preset's shapes), the DG fixture soak
+    at production widths on 96x160 fixtures (crop 64x128, the mid-run
+    checkpoint restored into a fresh experiment, in-loop evals) and the
+    onchip translator.  Each asserts its own invariants; returns the launch
+    counts by path."""
+    counts, rates = {}, {}
+    wd = os.path.join(work, "soak_onchip_warmup")
+    res, counts["soak onchip gta2city_warmup"] = run_path(
+        "soak onchip gta2city_warmup", soak.main,
+        ["--preset", PRESET, "--mode", "onchip", "--steps", str(SOAK_ONCHIP_STEPS),
+         "--work_dir", wd],
+        kernel_counts(SOAK_ONCHIP_STEPS, 6 * SOAK_ONCHIP_STEPS), (torch.bfloat16, DISTILL_SHAPE),
+        {GN_TRAIN_SITES[0]})
+    rates["onchip warm-up"] = (source_batch(PRESET) / res["imgs_per_sec"] * 1e3,
+                               res["imgs_per_sec"], res["first"], res["last"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    n, every = SOAK_FIXTURE_STEPS, max(SOAK_FIXTURE_STEPS // 4, 1)
+    evals = sum(1 for i in range(1, n) if i % every == 0)
+    wd = os.path.join(work, "soak_fixtures_dg")
+    res, counts["soak fixtures dg_gta5"] = run_path(
+        "soak fixtures dg_gta5", soak.main,
+        ["--preset", DG_PRESET, "--steps", str(n), "--work_dir", wd],
+        kernel_counts(n, 6 * n + evals * 4 * 2 * 6),  # the teacher; 4 val images x 2 scales
+        (torch.bfloat16, (8, 64, 128, 19)))
+    rates["fixtures dg"] = (*_fixture_soak_rate(wd, source_batch(DG_PRESET)), res["head"],
+                            res["tail"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    wd = os.path.join(work, "soak_onchip_translator")
+    res, counts["soak onchip gta2city_translator"] = run_path(
+        "soak onchip gta2city_translator", soak.main,
+        ["--preset", TRANSLATOR_PRESET, "--mode", "onchip", "--steps",
+         str(SOAK_TRANSLATOR_STEPS), "--work_dir", wd], kernel_counts(0, 0))
+    rates["onchip translator"] = (source_batch(TRANSLATOR_PRESET) / res["imgs_per_sec"] * 1e3,
+                                  res["imgs_per_sec"], res["head"], res["tail"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("soak: " + "; ".join(
+        f"{k} {v[0]:.2f} ms/step, {v[1]:.2f} source imgs/s, loss {v[2]:.4f} -> {v[3]:.4f}"
+        for k, v in rates.items())
+        + f" (steps {SOAK_ONCHIP_STEPS}, {SOAK_FIXTURE_STEPS}, {SOAK_TRANSLATOR_STEPS}) "
+        f"| card={card}", flush=True)
     return counts
 
 
@@ -1996,8 +2247,9 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(0)
     print(f"device: {name} x{torch.cuda.device_count()} | nvidia-smi: {card} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-    # 2. build
+    # 2. build, and the C host ops against their numpy forms
     phase_build()
+    phase_host_ops(card)
     lap("2 build")
     # 3. kernels against their plain versions
     errs = {**phase_kernels_vs_plain(), **phase_distill_vs_plain()}
@@ -2056,7 +2308,8 @@ def main(argv=None) -> int:
         phase_train_timing(DG_PRESET, chain["data"], card, args.profile)
         gc.collect()
         torch.cuda.empty_cache()
-        lap("7 self-training chain, DG")
+        phase_make_viz(work, chain)
+        lap("7 self-training chain, DG, make_viz")
         # 7b. fused self-training (CLI and timing), parity_check against the replay
         counts.update(phase_fused_selftrain(work, chain))
         gc.collect()
@@ -2089,6 +2342,9 @@ def main(argv=None) -> int:
         # 8c. main paths: the semi-supervised Cityscapes chain (HRNet-W48+OCR)
         counts.update(phase_semiseg(work, card, args.profile))
         lap("8c semiseg")
+        # 8d. the soaks: onchip warm-up, DG on fixtures, onchip translator
+        counts.update(phase_soak(work, card))
+        lap("8d soaks")
     gc.collect()
     torch.cuda.empty_cache()
     # 9. kernel timing and the record lines

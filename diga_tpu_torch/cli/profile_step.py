@@ -18,8 +18,15 @@ busy share over the unprofiled ms/step.  The trace (``trace.json``) and
 the op table (``ops.txt``) go to ``--trace_dir``.  No dataset needed.  On
 the CPU the trace has no device ops and the CLI says so; where the table
 cannot be read it prints the profiler's raw table and the trace path.
-``--hlo_out`` (XLA's compiled-HLO attribution) has no counterpart and is
-refused.
+
+``--components`` also prints, from the same trace, the device time per
+step split into the JAX tool's seven components (``translator_fwd``,
+``model_fwd``, ``model_bwd``, ``optimizer_ema``, ``aug_mix``,
+``loss_resize``, ``misc``) and ``unmatched``, by the steps'
+``record_function`` scopes (``utils/profiling.py::attribute_events``;
+on the CPU, the CPU ops' time), with the port's kernels by component and
+the largest scopes.  ``--hlo_out`` (XLA's compiled-HLO attribution, which
+``--components`` replaces) has no counterpart and is refused.
 """
 
 from __future__ import annotations
@@ -29,7 +36,8 @@ import argparse
 from .. import resolve_device
 from ..configs.presets import get_preset
 from ..train.build import build_experiment
-from ..utils.profiling import profile_step, report_from_events
+from ..utils.profiling import (attribute_events, profile_step, render_components,
+                               report_from_events)
 from ..utils.synth import synth_batch
 from .common import apply_overrides
 
@@ -44,33 +52,42 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--top_k", type=int, default=25)
     p.add_argument("--trace_dir", default="./work_dir/profile_step")
+    p.add_argument("--components", action="store_true",
+                   help="also print the device time split into the JAX tool's components, "
+                        "by the steps' record_function scopes")
     p.add_argument("--hlo_out", default=None,
                    help="the JAX tool's compiled-HLO attribution: refused (no XLA here)")
     args = p.parse_args(argv)
     if args.hlo_out is not None:
         p.error("--hlo_out dumps XLA's optimized HLO for the JAX package's attribution; the "
-                "port runs no XLA program, so it has no counterpart: the category table and "
-                "the kernel names are the attribution")
+                "port runs no XLA program, so it has no counterpart: --components splits "
+                "the same trace by the steps' record_function scopes")
     device = resolve_device(args.device)
     cfg = apply_overrides(get_preset(args.preset), args)
     state, step, _ = build_experiment(cfg, device)
     batch = synth_batch(cfg, device)
 
-    events, step_ms, table = profile_step(lambda: step(state, batch), args.trace_dir, device,
-                                          n_steps=args.steps)
+    events, step_ms, table, trace = profile_step(lambda: step(state, batch), args.trace_dir,
+                                                 device, n_steps=args.steps)
     try:
         rep = report_from_events(events, n_steps=args.steps, step_ms=step_ms)
     except (AttributeError, KeyError, TypeError, ValueError) as e:
         print(f"[the profiler's table could not be read ({type(e).__name__}: {e}); its raw "
               f"table follows, the trace is {args.trace_dir}/trace.json]\n{table}")
         return None
+    if args.components:
+        rep.components = attribute_events(trace, device.type, n_steps=args.steps)
     if rep.total_s == 0.0:
         print(f"[empty device-op report: no device ops in the trace ({device.type} run, "
               f"{step_ms:.1f} ms/step on the host clock): per-op attribution needs the card; "
               f"the raw trace is {args.trace_dir}/trace.json]")
+        if args.components:
+            print(f"CPU op time by component:\n{render_components(rep.components)}")
         return rep
     print(f"profile_step {cfg.name} ({cfg.stage}), {args.steps} steps on "
           f"{device.type}:\n{rep.render(top_k=args.top_k)}")
+    if args.components:
+        print(render_components(rep.components))
     return rep
 
 

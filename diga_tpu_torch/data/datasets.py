@@ -3,9 +3,11 @@
 The port's own copy of ``diga_tpu/data/datasets.py``: ``SegDataset`` with
 the training-time geometric augmentation, the rare-class resampling and
 the self-training pseudo-labels, and the GTA5, SYNTHIA, Cityscapes, BDD
-and Mapillary constructors.  The JAX package routes the uint8 remap and
-the normalize through its C host ops; their numpy forms below give the
-same values bit for bit.
+and Mapillary constructors.  As in the JAX package (:147-170), the remap
+of a uint8 label map through a 256-entry LUT and the normalize of a uint8
+HWC RGB image run as C host ops (``utils/native.py``); SYNTHIA's uint16
+labels and any other image keep the numpy forms, which give the same
+values bit for bit.
 
 Reference citations: GTA5Loader.py:35-112, CityLoader.py:30-138,
 SYNTHIALoader.py:59-141, MapillaryLoader.py:133+, BDDLoader.py:35+.
@@ -20,8 +22,9 @@ from typing import Callable
 import numpy as np
 from PIL import Image
 
+from ..utils import native
 from . import label_maps
-from .normalize import normalize_image
+from .normalize import IMG_MEAN_BGR, normalize_image
 from .transforms import Compose, resize_pair
 
 
@@ -123,6 +126,7 @@ class SegDataset:
         if len(self.img_list) != len(self.lbl_list):
             raise ValueError(
                 f"{len(self.img_list)} images vs {len(self.lbl_list)} labels")
+        native.load()  # build the C ops here: a failed build raises on this thread
 
     def __len__(self) -> int:
         return len(self.img_list)
@@ -150,6 +154,12 @@ class SegDataset:
             return not (cats[-1] == label_maps.IGNORE_LABEL and frac[-1] > RARE_MIN_FRAC)
         return False
 
+    def _remap(self, labels: np.ndarray) -> np.ndarray:
+        labels = np.asarray(labels)
+        if labels.dtype == np.uint8 and len(self.lut) == 256:
+            return native.remap_u8(labels, self.lut)  # the C op
+        return label_maps.remap_labels(labels, self.lut)
+
     def __getitem__(self, index: int, rng: np.random.Generator | None = None) -> dict:
         image = _read_image(self.img_path(index))
         masks = [self.lbl_reader(self.lbl_path(index))]
@@ -159,17 +169,21 @@ class SegDataset:
             image, masks = resize_pair(image, masks, self.resize_hw)
         if self.transform is None:
             img_np = np.array(image)
-            lbl_np = label_maps.remap_labels(np.array(masks[0]), self.lut)
+            lbl_np = self._remap(np.array(masks[0]))
             rest = [np.array(m) for m in masks[1:]]
         else:
             rng = rng if rng is not None else np.random.default_rng()
             for _ in range(RARE_MAX_TRIES if self.rare_class_resample else 1):
                 img_np, lbl_raw, *rest = self.transform(image, *masks, rng=rng)
-                lbl_np = label_maps.remap_labels(lbl_raw, self.lut)
+                lbl_np = self._remap(lbl_raw)
                 if not self.rare_class_resample or self._accept_rare(lbl_np):
                     break
+        if img_np.dtype == np.uint8 and img_np.ndim == 3 and img_np.shape[-1] == 3:
+            image_out = native.normalize_bgr(img_np, IMG_MEAN_BGR)  # the C op
+        else:
+            image_out = normalize_image(img_np)
         sample = {
-            "image": normalize_image(img_np),
+            "image": image_out,
             "label": lbl_np.astype(np.uint8),
             "name": self.img_list[index],
         }

@@ -57,7 +57,8 @@ def collate(samples: Sequence[dict]) -> dict:
 
 class BatchLoader:
     """Infinite batches of ``batch_size`` samples, built by worker threads
-    and yielded in order."""
+    and yielded in order.  A worker that fails hands its exception on in
+    place of the batch, and the consumer raises it there."""
 
     def __init__(self, dataset: SegDataset, batch_size: int, seed: int = 0,
                  num_workers: int = 4, prefetch: int = 4):
@@ -74,16 +75,21 @@ class BatchLoader:
         batch_idx = worker_id
         while not self._stop.is_set():
             positions = [batch_idx * self.batch_size + j for j in range(self.batch_size)]
-            samples = [self.dataset.__getitem__(self.sampler.index_at(p),
-                                                rng=np.random.default_rng((self.seed, p)))
-                       for p in positions]
-            item = (batch_idx, collate(samples))
+            try:
+                samples = [self.dataset.__getitem__(self.sampler.index_at(p),
+                                                    rng=np.random.default_rng((self.seed, p)))
+                           for p in positions]
+                item = (batch_idx, collate(samples))
+            except Exception as e:  # handed to the consumer, which raises it
+                item = (batch_idx, e)
             while not self._stop.is_set():
                 try:
                     self._q.put(item, timeout=1.0)
                     break
                 except queue.Full:
                     continue
+            if isinstance(item[1], Exception):
+                return
             batch_idx += self.num_workers
 
     def start(self) -> None:
@@ -107,5 +113,8 @@ class BatchLoader:
             while want not in pending:
                 idx, batch = self._q.get()
                 pending[idx] = batch
-            yield pending.pop(want)
+            batch = pending.pop(want)
+            if isinstance(batch, Exception):
+                raise RuntimeError(f"a loader worker failed on batch {want}") from batch
+            yield batch
             want += 1

@@ -20,3 +20,10 @@ def normalize_image(rgb_uint8: np.ndarray, mean_bgr: np.ndarray = IMG_MEAN_BGR) 
     img = img[..., ::-1]  # RGB -> BGR
     img = img - mean_bgr
     return img / 128.0
+
+
+def denormalize_image(bgr_norm: np.ndarray, mean_bgr: np.ndarray = IMG_MEAN_BGR) -> np.ndarray:
+    """float32 BGR HWC normalized -> uint8 RGB HWC (clipped, truncated)."""
+    img = np.asarray(bgr_norm, dtype=np.float32) * 128.0 + mean_bgr
+    img = img[..., ::-1]
+    return np.clip(img, 0, 255).astype(np.uint8)

@@ -1,6 +1,6 @@
 """Host-side paired geometric augmentations (numpy/PIL).
 
-The port's own copy of ``diga_tpu/data/transforms.py`` (:33-120): image
+The port's own copy of ``diga_tpu/data/transforms.py`` (:33-132): image
 resampled bilinearly, masks nearest, any number of masks, each random
 draw from an explicit numpy ``Generator`` (reference:
 util/loader/augmentations.py:10-221).  Photometric augmentation runs on
@@ -102,3 +102,18 @@ class RandomSizedAndCrop:
         img = img.resize((w, h), Image.BILINEAR)
         masks = [m.resize((w, h), Image.NEAREST) for m in masks]
         return self.crop(img, masks, rng)
+
+
+class CenterCrop:
+    """Deterministic center crop (reference: augmentations.py:89-102)."""
+
+    def __init__(self, size):
+        self.size = (int(size), int(size)) if isinstance(size, (int, float)) else tuple(size)
+
+    def __call__(self, img, masks, rng):
+        w, h = img.size
+        th, tw = self.size
+        x1 = int(round((w - tw) / 2.0))
+        y1 = int(round((h - th) / 2.0))
+        box = (x1, y1, x1 + tw, y1 + th)
+        return img.crop(box), [m.crop(box) for m in masks]

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from .. import MEMORY_FORMAT
 from ..ops.stats import sums_and_squares
@@ -203,6 +204,10 @@ class Discriminator(nn.Module):
 
 def translate(frozen: nn.ModuleDict, img: torch.Tensor) -> torch.Tensor:
     """dec_s2t(enc_s(img)) of an NHWC image batch, as NHWC (the JAX
-    package's ``translator_apply``, ``diga_tpu/train/build.py:111-124``)."""
-    z = frozen["enc_s"](img.permute(0, 3, 1, 2))
-    return frozen["dec_s2t"](z).permute(0, 2, 3, 1)
+    package's ``translator_apply``, ``diga_tpu/train/build.py:111-124``);
+    each module runs in a profiler scope named after its class."""
+    enc, dec = frozen["enc_s"], frozen["dec_s2t"]
+    with record_function(type(enc).__name__):
+        z = enc(img.permute(0, 3, 1, 2))
+    with record_function(type(dec).__name__):
+        return dec(z).permute(0, 2, 3, 1)

@@ -5,7 +5,8 @@ labels (B, H, W) integer trainIds with 255 = ignore.  Reference
 semantics:
   * ``cross_entropy2d``  — util/loss.py:48-62: the NLL of the valid pixels
     summed, divided by the count of ALL pixels, ignored ones included
-    (``F.cross_entropy(ignore_index=255)`` would divide by the valid count)
+    (``F.cross_entropy(ignore_index=255)`` would divide by the valid count);
+    ``cross_entropy2d_valid_mean`` divides by the valid count
   * ``ohem_cross_entropy`` — util/loss.py:65-122, the SYNTHIA stages' loss
   * ``distillation_loss`` — util/loss.py:125-143, written with autograd
     through PyTorch ops.  The train step runs the same function as
@@ -38,6 +39,12 @@ def cross_entropy2d(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Masked 2D cross entropy, f32, divided by ``labels.numel()``."""
     nll, _ = _nll_map(logits, labels)
     return torch.sum(nll) / labels.numel()
+
+
+def cross_entropy2d_valid_mean(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """CE averaged over the valid pixels only (the textbook normalization), f32."""
+    nll, valid = _nll_map(logits, labels)
+    return torch.sum(nll) / torch.clamp(valid.sum(), min=1)
 
 
 def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, thresh: float = 0.7,

@@ -1,8 +1,9 @@
 """Bilinear resize with torch ``align_corners=True`` semantics, and the
 nearest resize of label maps.
 
-Counterpart of ``diga_tpu/ops/resize.py::resize_bilinear`` (:48-87) and
-``resize_nearest`` (:90-111).  The
+Counterpart of ``diga_tpu/ops/resize.py::resize_bilinear`` (:48-87),
+``resize_nearest`` (:90-111), ``resize_nearest_nhwc`` and
+``upsample2x_nearest`` (:114-131).  The
 JAX package writes the resize as two interpolation-matrix products, a
 rewrite for the TPU's matrix unit; here it is the plain op that rewrite
 stands for, ``F.interpolate``.  As there, the interpolation runs in f32
@@ -55,3 +56,20 @@ def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     ih = torch.from_numpy(_nearest_index(h, oh)).to(x.device)
     iw = torch.from_numpy(_nearest_index(w, ow)).to(x.device)
     return x.index_select(-2, ih).index_select(-1, iw)
+
+
+def resize_nearest_nhwc(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of an NHWC (or HWC) tensor over its H, W dims, with the
+    float64 index rule of ``resize_nearest``."""
+    oh, ow = out_hw
+    h, w = x.shape[-3], x.shape[-2]
+    if (h, w) == (oh, ow):
+        return x
+    ih = torch.from_numpy(_nearest_index(h, oh)).to(x.device)
+    iw = torch.from_numpy(_nearest_index(w, ow)).to(x.device)
+    return x.index_select(-3, ih).index_select(-2, iw)
+
+
+def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
+    """2x nearest upsample of NHWC (``nn.Upsample(scale_factor=2)`` on NCHW)."""
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)

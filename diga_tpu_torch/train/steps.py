@@ -34,15 +34,26 @@ BGR->RGB (``_student_apply``, :104-117); the photometric chain, CrDoMix
 and DACS work on the BGR tensor before the flip.
 Forwards run under ``torch.autocast`` in the compute dtype; parameters
 stay f32.  The metrics stay device tensors until they are logged.
+
+Every part of a step runs in a ``torch.profiler.record_function`` scope
+(``scope``), inside one ``train_step`` scope: the model forwards by class
+name (``DeepLabV2``, ``HRNetOCR``), the frozen translator by module
+(``ImgEncoder``, ``ImgDecoder``), ``photometric``, ``crdomix`` (DACS as
+``crdomix/dacs``), ``prototypes``, ``cross_entropy`` (OHEM and the aux
+term), ``distill``, ``resize``, ``ema`` and ``sgd``: the names
+``utils/profiling.py::default_component``, the JAX package's rule, reads.
+A scope only marks a span of the profiler's trace: it computes nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
+from torch.profiler import record_function as scope
 
 from ..models.translator import translate
 from ..ops import distill as D
@@ -116,12 +127,28 @@ def _model_input(cfg: StepConfig, x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+def in_scope(name: str, step: Callable) -> Callable:
+    """``step`` run inside the profiler scope ``name``."""
+    @functools.wraps(step)
+    def scoped(*args, **kwargs):
+        with scope(name):
+            return step(*args, **kwargs)
+    return scoped
+
+
+def _forward(model, x: torch.Tensor):
+    """``model(x)`` in a scope named after the model's class."""
+    with scope(type(model).__name__):
+        return model(x)
+
+
 def _logits_up(cfg: StepConfig, model, x: torch.Tensor, with_aux: bool = False):
     """The model's logits on the NHWC batch ``x``, bilinearly upsampled to
     the crop, as NHWC; with ``with_aux`` also the aux logits, likewise."""
-    _, aux, logits, _ = model(_model_input(cfg, x))
-    up = resize_bilinear(_nhwc(logits), cfg.crop_hw)
-    return (up, resize_bilinear(_nhwc(aux), cfg.crop_hw)) if with_aux else up
+    _, aux, logits, _ = _forward(model, _model_input(cfg, x))
+    with scope("resize"):
+        up = resize_bilinear(_nhwc(logits), cfg.crop_hw)
+        return (up, resize_bilinear(_nhwc(aux), cfg.crop_hw)) if with_aux else up
 
 
 def _seg_loss_fn(cfg: StepConfig) -> Callable:
@@ -133,28 +160,36 @@ def _seg_loss_fn(cfg: StepConfig) -> Callable:
 
 def _photometric(cfg: StepConfig, generator: torch.Generator, img: torch.Tensor,
                  draws: dict | None) -> torch.Tensor:
-    if draws is None:
-        draw = P.draw_kornia if cfg.photometric == "kornia" else P.draw
-        draws = draw(generator, img.shape[0], p_jitter=cfg.p_jitter)
-    return P.diga_photometric(img, draws, cfg.beta, variant=cfg.photometric,
-                              with_sharpness=cfg.with_sharpness)
+    with scope("photometric"):
+        if draws is None:
+            draw = P.draw_kornia if cfg.photometric == "kornia" else P.draw
+            draws = draw(generator, img.shape[0], p_jitter=cfg.p_jitter)
+        return P.diga_photometric(img, draws, cfg.beta, variant=cfg.photometric,
+                                  with_sharpness=cfg.with_sharpness)
 
 
 def _crdomix_view(cfg: StepConfig, state: SegTrainState, s_img, s_lbl, s_aug, selection, amp):
     """The translated source image with the photometric view pasted into
     half its classes (reference warm_up.py:239-261)."""
-    if selection is None:
-        selection = mixing.sample_half_classes(s_lbl, state.gen_mix, cfg.num_classes)
-    with torch.no_grad():
-        with amp:
-            rec_s2t = translate(state.translator, s_img)
-        return mixing.crdomix(rec_s2t, s_aug, s_lbl, selection, cfg.num_classes)
+    with scope("crdomix"):
+        if selection is None:
+            selection = mixing.sample_half_classes(s_lbl, state.gen_mix, cfg.num_classes)
+        with torch.no_grad():
+            with amp:
+                rec_s2t = translate(state.translator, s_img)
+            return mixing.crdomix(rec_s2t, s_aug, s_lbl, selection, cfg.num_classes)
+
+
+def _ema(state: SegTrainState) -> None:
+    with scope("ema"):
+        ema_update(state.teacher, state.student, ema_alpha(state.step, EMA_CAP))
 
 
 def _sgd_step(state: SegTrainState, schedule: Callable[[int], float]) -> None:
-    set_lr(state.optimizer, schedule(state.step))
-    state.optimizer.step()
-    state.optimizer.zero_grad(set_to_none=True)
+    with scope("sgd"):
+        set_lr(state.optimizer, schedule(state.step))
+        state.optimizer.step()
+        state.optimizer.zero_grad(set_to_none=True)
     state.step += 1
 
 
@@ -171,16 +206,19 @@ def _distill_and_update(cfg: StepConfig, schedule, state: SegTrainState, s_cat: 
         s_up = _logits_up(cfg, state.student, s_cat, aux)
         if aux:
             (t_up, t_aux_up), (s_up, s_aux_up) = t_up, s_up
-        ce = seg_loss(s_up[:b], s_lbl)
-        distil = D.distillation_loss(t_up, s_up, DISTIL_SCALE)
-        if aux:
-            ce = ce + cfg.aux_weight * seg_loss(s_aux_up[:b], s_lbl)
-            distil = distil + cfg.aux_weight * D.distillation_loss(t_aux_up, s_aux_up,
-                                                                   DISTIL_SCALE)
+        with scope("cross_entropy"):
+            ce = seg_loss(s_up[:b], s_lbl)
+            if aux:
+                ce = ce + cfg.aux_weight * seg_loss(s_aux_up[:b], s_lbl)
+        with scope("distill"):
+            distil = D.distillation_loss(t_up, s_up, DISTIL_SCALE)
+            if aux:
+                distil = distil + cfg.aux_weight * D.distillation_loss(t_aux_up, s_aux_up,
+                                                                       DISTIL_SCALE)
         total = cfg.lambda_seg * ce + cfg.lambda_distil * distil
     total.backward()
     if cfg.tgt_stats_forward:
-        with torch.no_grad(), amp:
+        with torch.no_grad(), amp, scope(type(state.student).__name__):
             state.student.bn_stats_forward(_model_input(cfg, t_img))
     _sgd_step(state, schedule)
     return {"loss": total.detach(), "loss_semseg": ce.detach(), "loss_distil": distil.detach()}
@@ -199,12 +237,12 @@ def build_dg_step(cfg: StepConfig, schedule: Callable[[int], float]) -> Callable
              photometric_draws: dict | None = None) -> dict[str, torch.Tensor]:
         s_img, s_lbl = batch["s_img"], batch["s_lbl"]
         amp = _autocast(s_img.device, cfg.compute_dtype)
-        ema_update(state.teacher, state.student, ema_alpha(state.step, EMA_CAP))
+        _ema(state)
         s_aug = _photometric(cfg, state.gen_photometric, s_img, photometric_draws)
         s_cat = torch.cat([s_img, s_aug], dim=0)
         return _distill_and_update(cfg, schedule, state, s_cat, s_lbl, batch.get("t_img"), amp)
 
-    return step
+    return in_scope("train_step", step)
 
 
 def build_warmup_step(cfg: StepConfig, schedule: Callable[[int], float]) -> Callable:
@@ -220,13 +258,13 @@ def build_warmup_step(cfg: StepConfig, schedule: Callable[[int], float]) -> Call
              photometric_draws: dict | None = None) -> dict[str, torch.Tensor]:
         s_img, s_lbl = batch["s_img"], batch["s_lbl"]
         amp = _autocast(s_img.device, cfg.compute_dtype)
-        ema_update(state.teacher, state.student, ema_alpha(state.step, EMA_CAP))
+        _ema(state)
         s_aug = _photometric(cfg, state.gen_photometric, s_img, photometric_draws)
         s_mix = _crdomix_view(cfg, state, s_img, s_lbl, s_aug, selection, amp)
         s_cat = torch.cat([s_img, s_mix], dim=0)
         return _distill_and_update(cfg, schedule, state, s_cat, s_lbl, batch.get("t_img"), amp)
 
-    return step
+    return in_scope("train_step", step)
 
 
 def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> Callable:
@@ -273,7 +311,7 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
         b, k = s_img.shape[0], cfg.num_classes
         amp = _autocast(s_img.device, cfg.compute_dtype)
 
-        ema_update(state.teacher, state.student, ema_alpha(state.step, EMA_CAP))
+        _ema(state)
         s_aug = _photometric(cfg, state.gen_photometric, s_img, photometric_draws)
         t_aug = _photometric(cfg, state.gen_photometric_target, t_img, target_photometric_draws)
         s_view = (_crdomix_view(cfg, state, s_img, s_lbl, s_aug, selection, amp)
@@ -284,29 +322,34 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
             with amp:
                 if cfg.fuse_forwards:
                     nt = t_img.shape[0]
-                    _, _, a_logits, a_feat = state.teacher(
-                        _model_input(cfg, torch.cat([s_cat, t_img], dim=0)))
+                    _, _, a_logits, a_feat = _forward(
+                        state.teacher, _model_input(cfg, torch.cat([s_cat, t_img], dim=0)))
                     st_logits, tt_logits = a_logits[:-nt], a_logits[-nt:]
                     st_feat, tt_feat = a_feat[:-nt], a_feat[-nt:]
                 else:
-                    _, _, st_logits, st_feat = state.teacher(_model_input(cfg, s_cat))
-                    _, _, tt_logits, tt_feat = state.teacher(_model_input(cfg, t_img))
+                    _, _, st_logits, st_feat = _forward(state.teacher, _model_input(cfg, s_cat))
+                    _, _, tt_logits, tt_feat = _forward(state.teacher, _model_input(cfg, t_img))
             st_logits, st_feat = _nhwc(st_logits), _nhwc(st_feat)
             tt_logits, tt_feat = _nhwc(tt_logits), _nhwc(tt_feat)
-            st_up = resize_bilinear(st_logits, cfg.crop_hw)
+            with scope("resize"):
+                st_up = resize_bilinear(st_logits, cfg.crop_hw)
 
-            weights = prototypes.centroid_weight(tt_feat, state.centroids.vectors)
-            t_consensus = prototypes.bilateral_consensus(
-                t_pseudo, resize_bilinear(weights, cfg.crop_hw))
-            if dacs_selection is None:
-                dacs_selection = mixing.sample_half_classes(s_lbl, state.gen_dacs, k)
-            cross_img, cross_lbl = mixing.dacs_crossmix(t_aug, s_img, s_lbl, t_consensus,
-                                                        dacs_selection, k)
+            with scope("prototypes"):
+                weights = prototypes.centroid_weight(tt_feat, state.centroids.vectors)
+                t_consensus = prototypes.bilateral_consensus(
+                    t_pseudo, resize_bilinear(weights, cfg.crop_hw))
+            with scope("crdomix"), scope("dacs"):
+                if dacs_selection is None:
+                    dacs_selection = mixing.sample_half_classes(s_lbl, state.gen_dacs, k)
+                cross_img, cross_lbl = mixing.dacs_crossmix(t_aug, s_img, s_lbl, t_consensus,
+                                                            dacs_selection, k)
 
-            vec_t, ok_t = prototypes.masked_class_means(tt_feat, tt_logits, t_consensus)
-            cents = prototypes.update_centroids(state.centroids, vec_t, ok_t, start_mean=False)
-            vec_s, ok_s = prototypes.masked_class_means(st_feat[b:], st_logits[b:], s_lbl)
-            cents = prototypes.update_centroids(cents, vec_s, ok_s, start_mean=False)
+            with scope("prototypes"):
+                vec_t, ok_t = prototypes.masked_class_means(tt_feat, tt_logits, t_consensus)
+                cents = prototypes.update_centroids(state.centroids, vec_t, ok_t,
+                                                    start_mean=False)
+                vec_s, ok_s = prototypes.masked_class_means(st_feat[b:], st_logits[b:], s_lbl)
+                cents = prototypes.update_centroids(cents, vec_s, ok_s, start_mean=False)
 
         with amp:
             if cfg.fuse_forwards:
@@ -317,9 +360,11 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
                 s_up = _logits_up(cfg, state.student, s_cat)
                 cross_up = _logits_up(cfg, state.student, cross_img)
             seg_loss = _seg_loss_fn(cfg)
-            ce = seg_loss(s_up[:b], s_lbl)
-            ce_cross = seg_loss(cross_up, cross_lbl)
-            distil = D.distillation_loss(st_up, s_up, DISTIL_SCALE)
+            with scope("cross_entropy"):
+                ce = seg_loss(s_up[:b], s_lbl)
+                ce_cross = seg_loss(cross_up, cross_lbl)
+            with scope("distill"):
+                distil = D.distillation_loss(st_up, s_up, DISTIL_SCALE)
             total = cfg.lambda_seg * (ce + ce_cross) + cfg.lambda_distil * distil
         total.backward()
         _sgd_step(state, schedule)
@@ -328,4 +373,4 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
                 "loss_crossmix": ce_cross.detach(), "loss_distil": distil.detach(),
                 "consensus_kept": (t_consensus != prototypes.IGNORE).to(torch.float32).mean()}
 
-    return step
+    return in_scope("train_step", step)

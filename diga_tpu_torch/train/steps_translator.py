@@ -21,6 +21,13 @@ reference's two generator forwards.  ``remat`` wraps every module call in
 ``torch.utils.checkpoint`` (``use_reentrant=False``); ``None`` turns it on
 only with the perceptual term, whose VGG forwards add full-resolution
 activations back (``:86-96``).
+
+As in ``train/steps.py``, the step runs in one ``translator_step``
+profiler scope, each module call in a scope named after its class
+(``ImgEncoder``, ``ImgDecoder``, ``Discriminator``, ``VGG19Features``),
+and each Adam update in ``scale_by_adam`` (optax's name for Adam's
+transform, which ``utils/profiling.py::default_component`` reads as
+``optimizer_ema``).
 """
 
 from __future__ import annotations
@@ -30,12 +37,13 @@ from typing import Callable
 
 import torch
 import torch.nn as nn
+from torch.profiler import record_function as scope
 from torch.utils.checkpoint import checkpoint
 
 from ..models.vgg import VGG19Features, vgg_perceptual_loss
 from ..ops import losses as L
 from .optim import adam_translator, set_lr
-from .steps import _autocast
+from .steps import _autocast, in_scope
 
 ROLES = ("enc_s", "enc_t", "dec_s2t", "dec_t2s", "dis_s2t", "dis_t2s")
 GEN_ROLES = ROLES[:4]
@@ -98,13 +106,15 @@ def build_translator_step(cfg: TranslatorConfig, schedule: Callable[[int], float
     percep = with_vgg and cfg.lambda_percep > 0
     remat = cfg.remat if cfg.remat is not None else percep
 
-    def call(module: nn.Module, x: torch.Tensor):
-        return checkpoint(module, x, use_reentrant=False) if remat else module(x)
+    def call(module: nn.Module, x: torch.Tensor, remat: bool = remat):
+        with scope(type(module).__name__):
+            return checkpoint(module, x, use_reentrant=False) if remat else module(x)
 
     def update(state: TranslatorState, role: str) -> None:
         opt = state.optimizers[role]
-        set_lr(opt, schedule(state.step))
-        opt.step()
+        with scope("scale_by_adam"):
+            set_lr(opt, schedule(state.step))
+            opt.step()
 
     def d_step(state, role, real, fake, amp) -> torch.Tensor:
         """One discriminator update on detached ``fake`` (reference :262-282)."""
@@ -132,8 +142,9 @@ def build_translator_step(cfg: TranslatorConfig, schedule: Callable[[int], float
         total = (cfg.lambda_adv * loss_adv + cfg.lambda_cyc * loss_cyc
                  + cfg.lambda_seg_edge * loss_edge + cfg.lambda_self * loss_self)
         if percep:
-            total = total + cfg.lambda_percep * (vgg_perceptual_loss(state.vgg, r_s2t, s)
-                                                 + vgg_perceptual_loss(state.vgg, r_t2s, t))
+            with scope(type(state.vgg).__name__):
+                total = total + cfg.lambda_percep * (vgg_perceptual_loss(state.vgg, r_s2t, s)
+                                                     + vgg_perceptual_loss(state.vgg, r_t2s, t))
         return total, {"loss_adv": loss_adv, "loss_cyc": loss_cyc, "loss_edge": loss_edge,
                        "loss_self": loss_self}
 
@@ -167,7 +178,8 @@ def build_translator_step(cfg: TranslatorConfig, schedule: Callable[[int], float
             fakes = outs[0].detach(), outs[1].detach()
         else:
             with torch.no_grad(), amp:
-                fakes = (m["dec_s2t"](m["enc_s"](s)), m["dec_t2s"](m["enc_t"](t)))
+                fakes = (call(m["dec_s2t"], call(m["enc_s"], s, False), False),
+                         call(m["dec_t2s"], call(m["enc_t"], t, False), False))
         loss_d_s2t = d_step(state, "dis_s2t", t, fakes[0], amp)
         loss_d_t2s = d_step(state, "dis_t2s", s, fakes[1], amp)
         if not cfg.fuse:
@@ -185,4 +197,4 @@ def build_translator_step(cfg: TranslatorConfig, schedule: Callable[[int], float
         return {"loss_g": total.detach(), "loss_d_s2t": loss_d_s2t, "loss_d_t2s": loss_d_t2s,
                 **{k: v.detach() for k, v in aux.items()}}
 
-    return step
+    return in_scope("translator_step", step)

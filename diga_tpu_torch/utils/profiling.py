@@ -6,13 +6,24 @@ times it without the profiler (the unprofiled ms/step), then traces
 ``n_steps`` more with CPU and CUDA activities; ``ProfileReport`` sums the
 device kernels and copies by family (``op_category``) and by name, per
 step, and gives the busy share (device time over the unprofiled step
-time).  The JAX module's xplane and HLO parts (:163-252: the compiled-HLO
-metadata join) have no counterpart: there is no XLA program here, and the
-category table and the kernel names are the attribution.
+time).
+
+Component attribution (JAX :183-252): the train steps wrap each of their
+parts in a ``torch.profiler.record_function`` scope (``train/steps.py``,
+``train/steps_translator.py``), named so that ``default_component``, the
+JAX package's rule, reads the scope path as it reads a jax op path.
+``attribute_events`` charges every device op (a kernel, copy or memset;
+on the CPU, every CPU op's self time) to the scope path of the CPU op
+that launched it; an op launched by the backward pass takes its forward
+op's scopes, joined through the autograd sequence number, as
+``backward``.  What cannot be joined is ``unmatched``, as in JAX's
+``attribute_trace``.  The JAX module's xplane and HLO parsing has no
+counterpart: there is no XLA program here.
 """
 
 from __future__ import annotations
 
+import bisect
 import os
 import re
 import time
@@ -59,6 +70,7 @@ class ProfileReport:
     top_ops: list = field(default_factory=list)  # [(sec, count, name)], largest first
     n_steps: int = 1
     step_ms: float | None = None  # the unprofiled ms/step, where measured
+    components: dict | None = None  # attribute_events' split, where asked for
 
     @property
     def device_ms_per_step(self) -> float:
@@ -98,7 +110,8 @@ def report_from_events(events, n_steps: int = 1, step_ms: float | None = None
     cat = defaultdict(lambda: [0.0, 0])
     ops = {}
     for e in events:
-        if e.device_type != DeviceType.CUDA:
+        # the device-side spans of the steps' record_function scopes are not ops
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:  # torch versions before the device-generic name
@@ -114,6 +127,167 @@ def report_from_events(events, n_steps: int = 1, step_ms: float | None = None
     return rep
 
 
+def default_component(scope_path: str, backward: bool) -> str:
+    """Coarse component of an op from its scope path (the scopes outermost
+    first, joined by "/"), by the JAX package's rule and order
+    (``diga_tpu/utils/profiling.py:183-201``); ``backward`` takes the place
+    of JAX's ``"transpose(" in path``."""
+    p = scope_path
+    if "ImgEncoder" in p or "ImgDecoder" in p:
+        return "translator_fwd"  # as in JAX, the translator's backward too
+    if "DeepLabV2" in p or "HRNet" in p:
+        return "model_bwd" if backward else "model_fwd"
+    for key in ("sgd", "ema", "add_decayed", "trace_update", "apply_updates",
+                "scale_by", "masked", "/update/"):
+        if key in p:
+            return "optimizer_ema"
+    if "photometric" in p or "crdomix" in p or "hsv" in p:
+        return "aug_mix"
+    if ("distill" in p or "cross_entropy" in p or "log_softmax" in p
+            or "resize" in p):
+        return "loss_resize"
+    return "misc"
+
+
+_BACKWARD_SCOPE = 1  # at::RecordScope::BACKWARD_FUNCTION, an autograd node's evaluation
+
+
+def _is_node(e) -> bool:
+    """An autograd node's evaluation: the engine's span or the node's own."""
+    return e.scope == _BACKWARD_SCOPE or e.name.startswith("autograd::engine::evaluate_function")
+
+
+def _scopes_of(cpu_events) -> dict:
+    """id(CPU event) -> (its scope path, backward), or None where it has no
+    scope or its autograd node joins no forward op."""
+    def chain(e):
+        out = []
+        while e is not None:
+            out.append(e)
+            e = e.cpu_parent
+        return out
+
+    def scopes(ch):
+        return "/".join(a.name for a in reversed(ch) if getattr(a, "is_user_annotation", False))
+
+    chains = {id(e): chain(e) for e in cpu_events}
+    # an op run with grad enabled records the thread's next sequence number
+    # whether or not it makes an autograd node; the op that makes node N is
+    # the last to record N (the next ops record N + 1): the latest one wins
+    latest = {}
+    for e in cpu_events:
+        if e.sequence_nr >= 0 and not any(_is_node(a) for a in chains[id(e)]):
+            key = (e.sequence_nr, e.thread)
+            if key not in latest or e.time_range.start >= latest[key].time_range.start:
+                latest[key] = e
+    forward = {key: scopes(chains[id(e)]) for key, e in latest.items()}
+    where = {}
+    for e in cpu_events:
+        ch = chains[id(e)]
+        node = next((a for a in ch if _is_node(a)), None)
+        if node is None:
+            path = scopes(ch)
+            where[id(e)] = (path, False) if path else None
+        else:
+            path = forward.get((node.sequence_nr, node.fwd_thread))
+            where[id(e)] = (path, True) if path else None
+    return where
+
+
+def _is_runtime(e) -> bool:
+    """A CUDA runtime or driver API call (cudaLaunchKernel, cudaLaunchKernelExC,
+    cudaMemcpyAsync, cuLaunchKernel, ...), not an op."""
+    return e.name.startswith("cu") and "::" not in e.name
+
+
+def _launchers(device_events, cpu_events) -> list:
+    """For each device op, the innermost CPU op running when its launch
+    call started (the op with the latest start whose span holds it), or
+    None.  The launch call is the runtime event of the device op's
+    correlation id.  The profiler links most kernels to their op itself,
+    but not those launched with cudaLaunchKernelEx (the GroupNorm pair's
+    clusters and programmatic launch), and its link is not an attribute of
+    the events in every torch version: the time join serves all."""
+    launch_at = {e.id: e.time_range.start for e in cpu_events if _is_runtime(e)}
+    ops = sorted((e for e in cpu_events if not _is_runtime(e)),
+                 key=lambda e: e.time_range.start)
+    starts = [e.time_range.start for e in ops]
+    out = []
+    for d in device_events:
+        t = launch_at.get(d.id)
+        found = None
+        if t is not None:
+            for i in range(bisect.bisect_right(starts, t) - 1, -1, -1):
+                if ops[i].time_range.end >= t:
+                    found = ops[i]
+                    break
+        out.append(found)
+    return out
+
+
+def attribute_events(events, device_type: str, n_steps: int = 1,
+                     component_fn: Callable[[str, bool], str] = default_component) -> dict:
+    """Per-component seconds per step from a trace's ``prof.events()``.
+
+    ``device_type`` "cuda": every device kernel, copy and memset (not the
+    device-side spans of the user annotations) is charged to the CPU op
+    that launched it (``_launchers``); "cpu": every CPU op's self time to
+    itself.  The op's scope path is its user annotations, outermost first;
+    under an autograd node (the backward pass) it is the path of the
+    forward op of the node's sequence number, with ``backward=True``.
+    Returns {"total", "components", "unmatched", "scopes" (seconds by
+    scope path and direction), "port_kernels" (component -> family ->
+    seconds, for the ``distill`` and ``group_norm`` kernels)}, all per step.
+    """
+    from torch.autograd import DeviceType
+
+    cpu = [e for e in events if e.device_type == DeviceType.CPU and not e.is_async]
+    where = _scopes_of(cpu)
+    if device_type == "cpu":
+        charges = [(e.self_cpu_time_total / 1e6, e, e.name) for e in cpu if not _is_runtime(e)]
+    elif device_type == "cuda":
+        device = [d for d in events if d.device_type == DeviceType.CUDA
+                  and not getattr(d, "is_user_annotation", False)]
+        charges = [((d.time_range.end - d.time_range.start) / 1e6, op, d.name)
+                   for d, op in zip(device, _launchers(device, cpu))]
+    else:
+        raise ValueError(f"device_type {device_type!r}: 'cuda' or 'cpu'")
+    comp, scopes_s, port = defaultdict(float), defaultdict(float), defaultdict(dict)
+    total = unmatched = 0.0
+    for sec, launcher, name in charges:
+        total += sec
+        joined = None if launcher is None else where.get(id(launcher))
+        if joined is None:
+            unmatched += sec
+            continue
+        path, backward = joined
+        c = component_fn(path, backward)
+        comp[c] += sec
+        scopes_s[f"{path} ({'bwd' if backward else 'fwd'})"] += sec
+        family = op_category(name)
+        if family in PORT_KERNELS:
+            port[c][family] = port[c].get(family, 0.0) + sec
+    n = max(n_steps, 1)
+    per_step = lambda d: {k: v / n for k, v in sorted(d.items(), key=lambda kv: -kv[1])}  # noqa: E731
+    return {"total": total / n, "components": per_step(comp), "unmatched": unmatched / n,
+            "scopes": per_step(scopes_s),
+            "port_kernels": {c: {f: s / n for f, s in fam.items()} for c, fam in port.items()}}
+
+
+def render_components(att: dict, top_scopes: int = 15) -> str:
+    """The component table in ms/step, JAX's layout, then the largest scopes."""
+    lines = ["component attribution (ms/step):"]
+    lines += [f"  {k:<16} {v * 1e3:9.3f}" for k, v in att["components"].items()]
+    lines.append(f"  {'unmatched':<16} {att['unmatched'] * 1e3:9.3f}")
+    lines.append(f"  {'total':<16} {att['total'] * 1e3:9.3f}")
+    for c, fam in att["port_kernels"].items():
+        lines.append(f"  port kernels in {c}: "
+                     + ", ".join(f"{f} {s * 1e3:.3f}" for f, s in sorted(fam.items())))
+    lines.append(f"top {top_scopes} scopes (ms/step):")
+    lines += [f"  {v * 1e3:9.3f}  {k}" for k, v in list(att["scopes"].items())[:top_scopes]]
+    return "\n".join(lines)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -125,7 +299,8 @@ def profile_step(step_fn: Callable[[], object], trace_dir: str, device: torch.de
     the host clock (the unprofiled ms/step), then ``n_steps`` times inside
     one ``torch.profiler`` trace (CPU and, on the card, CUDA).  Writes
     ``trace.json`` and the op table ``ops.txt`` into ``trace_dir``; returns
-    ``(key_averages, unprofiled ms/step, op table)``."""
+    ``(key_averages, unprofiled ms/step, op table, the trace's events)``,
+    the events for ``attribute_events``."""
     from torch.profiler import ProfilerActivity, profile
 
     device = torch.device(device)
@@ -151,4 +326,4 @@ def profile_step(step_fn: Callable[[], object], trace_dir: str, device: torch.de
     table = events.table(sort_by=sort, row_limit=60)
     with open(os.path.join(trace_dir, "ops.txt"), "w") as f:
         f.write(table)
-    return events, step_ms, table
+    return events, step_ms, table, prof.events()
