@@ -153,6 +153,19 @@ Phases, any failure of which exits non-zero:
      restored into a fresh experiment, in-loop evals of 4 images) and
      ``--mode onchip --preset gta2city_translator``
      (``SOAK_TRANSLATOR_STEPS``); ms/step and source imgs/s of each
+  8e. data-parallel training over processes: train_warm_up --n_devices 1
+     at full width (3 steps, as in 6): an NCCL world of one rank in this
+     process, so every BN is the synced BN on its reduce path and every
+     step all-reduces the gradients in one flat bucket; the backend and the
+     world size printed; its step-0 losses against the no-flag run's of 6
+     within ``PARALLEL_LOSS_RTOL``.  Then its step built and timed as in 6
+     in a world of one (ms/step against phase 6's no-group ms/step, the
+     first step's losses from the built state against phase 6's).  Then
+     ``dryrun_multichip(torch.cuda.device_count())`` (one step each of the
+     translator, the batch-sharded eval, self-training, warm-up and semiseg
+     at tiny shapes).  With 2 cards or more, the tiny f32 warm-up over 2
+     ranks against 1 on the same global batch within
+     ``PARALLEL_WORLD_RTOL``; with one card a line says it did not run
   9. kernel timing: per-site GroupNorm and distillation device times
      (CUDA events around back-to-back calls queued behind a sleep kernel)
      against their byte bounds, plain versions and nearest library calls
@@ -172,7 +185,9 @@ steps) 2, 2, 12, 12; each train_domain_translator run 0, 0, 0, 0 (the
 translator stage reaches no TPU kernel: its InstanceNorm is plain
 reductions); the warm-up from the translator's weights (1 step) 1, 1, 6,
 6; the resume's two warm-ups (2 steps, then 1) 2, 2, 12, 12 and 1, 1, 6,
-6; the semiseg train_warm_up (3 steps) 6, 6, 0, 0 (the logits and the
+6; train_warm_up --n_devices 1 (3 steps) 3, 3, 18, 18;
+dryrun_multichip(1) (one card: in this process) at least one of each;
+the semiseg train_warm_up (3 steps) 6, 6, 0, 0 (the logits and the
 OCR aux logits), train_self_training (3 steps) 3, 3, 0, 0, and its
 pseudolabel_generator, calc_centroids and evaluate_val 0, 0, 0, 0
 (HRNet+OCR has no GroupNorm); profile_step (6 steps) 6, 6, 36, 36; the
@@ -242,6 +257,9 @@ from diga_tpu_torch.ops import photometric as P
 from diga_tpu_torch.ops.prototypes import Centroids
 from diga_tpu_torch.ops.losses import distillation_loss as plain_distillation_loss
 from diga_tpu_torch.ops.metrics import confusion_update
+from diga_tpu_torch.parallel import dist
+from diga_tpu_torch.parallel.dryrun import dryrun_multichip, warmup_world
+from diga_tpu_torch.parallel.sync_bn import SyncBatchNorm2d
 from diga_tpu_torch.train.build import (build_eval, build_experiment, make_schedule,
                                         make_step_config, wants_target)
 from diga_tpu_torch.train.loop import make_train_iterator, make_translator_iterator, to_device
@@ -328,7 +346,12 @@ TRAIN_PATHS = ("train_warm_up", "train_self_training", "train_dg", "synthia trai
                "synthia train_self_training", "parity train_warm_up",
                "translated train_warm_up", "resume train_warm_up", "resumed train_warm_up",
                "fused train_self_training", "profile_step", "soak onchip gta2city_warmup",
-               "soak fixtures dg_gta5")
+               "soak fixtures dg_gta5", "n_devices train_warm_up", "dryrun_multichip")
+# phase 8e: the world-1 warm-up's losses against the no-flag run's, bf16 (the
+# synced BN's f32 arithmetic against cuDNN's BatchNorm, and cuDNN's own
+# run-to-run spread); the 2-rank tiny warm-up against the 1-rank one, f32
+PARALLEL_LOSS_RTOL = 2e-2
+PARALLEL_WORLD_RTOL = 1e-4
 PREFETCH_BATCHES = 20  # prefetched batches held equal to their host copies under real steps
 PROFILE_STEPS = 2  # profile_step's traced (and untraced timed) steps, after its 2 warm-up steps
 TRANSLATOR_STEPS = 3
@@ -1111,7 +1134,8 @@ def phase_train_timing(preset: str, data_paths: dict, card: str, profile_dir: st
             ld.stop()
     batch.pop("t_lbl", None)
     n_src = batch["s_img"].shape[0]
-    step_ms(state, step, batch, 3)  # warm-up: cuDNN autotuning, allocator
+    first = {k: float(v) for k, v in step(state, batch).items()}  # from the built state
+    step_ms(state, step, batch, 2)  # warm-up: cuDNN autotuning, allocator
     torch.cuda.reset_peak_memory_stats()
     times = {"kernel": [], "plain": []}
     kernel_fn = D.distillation_loss
@@ -1125,7 +1149,7 @@ def phase_train_timing(preset: str, data_paths: dict, card: str, profile_dir: st
     k, p = (float(np.mean(times[v])) for v in ("kernel", "plain"))
     metric = f"{preset}_train_imgs_per_sec_per_chip"
     out = {"ms_per_step": k, "ms_per_step_plain_distill": p, "peak_mem_GiB": peak_gb,
-           metric: n_src / (k / 1e3)}
+           metric: n_src / (k / 1e3), "first_step": first}
     n_tgt = batch["t_img"].shape[0] if "t_img" in batch else 0
     hrnet = cfg.extra.get("model") == "hrnet_ocr"
     print(f"train {cfg.stage} step {'HRNet-W48+OCR' if hrnet else 'R101'} bf16 source {n_src} + "
@@ -1179,6 +1203,119 @@ def run_path(name: str, fn, argv: list, want: dict, distill_site: tuple | None =
     require(gn_sites is None or set(gn_seen) == gn_sites,
             f"B2 on the {name} path at {sorted(set(gn_seen))}, expected {sorted(gn_sites or ())}")
     return result, counts
+
+
+def world1_train_timing(preset: str, data_paths: dict, card: str) -> dict:
+    """``preset``'s step built and timed as in ``phase_train_timing`` but in a
+    world of one rank (NCCL, in this process): the synced BN and the flat
+    gradient all-reduce on every step.  The first step's metrics from the
+    built state, ms/step over 2 x 5 steps, peak memory."""
+    def run() -> dict:
+        base = get_preset(preset)
+        cfg = dataclasses.replace(base, data=dataclasses.replace(base.data, **data_paths))
+        device = dist.local_device(DEVICE.type)
+        state, step, _ = build_experiment(cfg, device)
+        n_sync = sum(isinstance(m, SyncBatchNorm2d) for m in state.student.modules())
+        it, loaders = make_train_iterator(cfg, with_target=wants_target(cfg))
+        try:
+            batch = to_device(next(it), device)
+        finally:
+            for ld in loaders:
+                ld.stop()
+        batch.pop("t_lbl", None)
+        first = {k: float(v) for k, v in step(state, batch).items()}
+        step_ms(state, step, batch, 2)
+        torch.cuda.reset_peak_memory_stats()
+        times = [step_ms(state, step, batch, 5) for _ in range(2)]
+        return {"backend": dist.backend(), "world": dist.world(), "sync_bns": n_sync,
+                "first_step": first, "times": times,
+                "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2**30}
+
+    return dist.launch(run, 1, DEVICE.type)
+
+
+def phase_parallel(work: str, data_paths: dict, card: str, plain: dict) -> dict:
+    """8e: data-parallel training over processes.  ``train_warm_up --n_devices
+    1`` (an NCCL world of one rank: the synced BN and the gradient
+    all-reduce) against the no-flag run; the world-1 step timed against
+    ``plain`` (phase 6's no-flag timing); ``dryrun_multichip`` over every
+    card; with 2 cards or more, the 2-rank tiny warm-up against the 1-rank
+    one on the same global batch."""
+    counts = {}
+    wd = os.path.join(work, "warmup_n_devices")
+    argv = ["--preset", PRESET, "--work_dir", wd, "--num_steps", str(TRAIN_STEPS),
+            *data_args(data_paths), "--n_devices", "1"]
+    seen = {}
+    close = dist.close_group
+
+    def recorded_close():
+        seen.update(backend=dist.backend(), world=dist.world())
+        close()
+
+    dist.close_group = recorded_close
+    try:
+        result, counts["n_devices train_warm_up"] = run_path(
+            "n_devices train_warm_up", train_warm_up.main, argv,
+            kernel_counts(TRAIN_STEPS, 6 * TRAIN_STEPS), (torch.bfloat16, DISTILL_SHAPE))
+    finally:
+        dist.close_group = close
+    print(f"train_warm_up --n_devices 1: backend {seen.get('backend')}, world "
+          f"{seen.get('world')}", flush=True)
+    require(seen == {"backend": dist.backend_for(DEVICE.type), "world": 1},
+            f"the --n_devices 1 world was {seen}")
+    require(not dist.active(), "a process group outlived the CLI")
+    check_train_run("n_devices train_warm_up", wd, result, ("loss", "loss_semseg", "loss_distil"))
+    recs = {}
+    for name, d in (("plain", os.path.join(work, "warmup")), ("world1", wd)):
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            recs[name] = json.loads(f.readline())
+    for k in ("loss", "loss_semseg", "loss_distil"):
+        a, b = recs["world1"][k], recs["plain"][k]
+        print(f"step 0 {k}: --n_devices 1 {a:.6f}, no flag {b:.6f}, rel {abs(a - b) / abs(b):.2e}",
+              flush=True)
+        require(abs(a - b) <= PARALLEL_LOSS_RTOL * abs(b),
+                f"step 0 {k}: --n_devices 1 {a} against the no-flag run's {b}")
+
+    w1 = world1_train_timing(PRESET, data_paths, card)
+    require(w1["backend"] == dist.backend_for(DEVICE.type) and w1["world"] == 1
+            and w1["sync_bns"] > 0, f"world: {w1}")
+    ms = float(np.mean(w1["times"]))
+    for k, b in plain["first_step"].items():
+        a = w1["first_step"][k]
+        require(abs(a - b) <= PARALLEL_LOSS_RTOL * abs(b),
+                f"first timed step {k}: world of one {a} against no group {b}")
+    print(f"train warmup step R101 bf16, a world of one rank ({w1['backend']}, {w1['sync_bns']} synced "
+          f"BNs, the gradient all-reduce): ms/step {ms:.2f} {w1['times']} against "
+          f"{plain['ms_per_step']:.2f} with no group (phase 6, same call); first step "
+          f"{w1['first_step']} against {plain['first_step']}; peak_mem_GiB="
+          f"{w1['peak_mem_GiB']:.2f} | card={card}", flush=True)
+    print(json.dumps({"metric": "gta2city_warmup_world1_ms_per_step", "value": ms,
+                      "no_group_ms_per_step": plain["ms_per_step"], "card": card}), flush=True)
+
+    n = torch.cuda.device_count() if DEVICE.type == "cuda" else 1
+    reset_launches()
+    t0 = time.perf_counter()
+    out = dryrun_multichip(n, DEVICE.type)
+    c = launches()
+    require(set(out) and all(math.isfinite(v) for v in out.values()), f"dryrun: {out}")
+    print(f"dryrun_multichip({n}) in {time.perf_counter() - t0:.1f} s: {out}; "
+          f"launches={c}", flush=True)
+    if n == 1:  # one rank, in this process: its launches are counted here
+        counts["dryrun_multichip"] = c
+    else:
+        print(f"dryrun_multichip({n}): its ranks are processes of their own; their launches "
+              "are not counted here", flush=True)
+    if n >= 2:
+        two, one = warmup_world(2), warmup_world(1)
+        print(f"tiny warm-up, 2 ranks against 1 on the same global batch: losses "
+              f"{two['losses']} against {one['losses']}", flush=True)
+        for a, b in zip(two["losses"] + two["param_sums"], one["losses"] + one["param_sums"]):
+            require(abs(a - b) <= PARALLEL_WORLD_RTOL * max(abs(b), 1.0),
+                    f"2 ranks {a} against 1 rank {b}")
+    else:
+        print("one card: the 2-rank run against the 1-rank run on the global batch needs 2 "
+              "cards and was not run (the CPU tests hold it over gloo)", flush=True)
+    return counts
 
 
 def kernel_counts(distill: int, gn: int) -> dict:
@@ -2284,7 +2421,7 @@ def main(argv=None) -> int:
         counts["train_warm_up"], data_paths = phase_train_main_path(work)
         gc.collect()
         torch.cuda.empty_cache()
-        phase_train_timing(PRESET, data_paths, card, args.profile)
+        warm_timing = phase_train_timing(PRESET, data_paths, card, args.profile)
         gc.collect()
         torch.cuda.empty_cache()
         lap("6 warm-up")
@@ -2344,7 +2481,14 @@ def main(argv=None) -> int:
         lap("8c semiseg")
         # 8d. the soaks: onchip warm-up, DG on fixtures, onchip translator
         counts.update(phase_soak(work, card))
+        gc.collect()
+        torch.cuda.empty_cache()
         lap("8d soaks")
+        # 8e. data-parallel training: a world of one NCCL rank, the dryrun twin
+        counts.update(phase_parallel(work, data_paths, card, warm_timing))
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("8e data-parallel")
     gc.collect()
     torch.cuda.empty_cache()
     # 9. kernel timing and the record lines

@@ -1,8 +1,14 @@
-"""Shared CLI plumbing: argparse base, preset overrides, device.
+"""Shared CLI plumbing: argparse base, preset overrides, device, world.
 
 Counterpart of ``diga_tpu/cli/common.py``, with ``--device`` (default
-``cuda``).  ``--n_devices`` and ``--multihost`` belong to the multi-GPU
-slice of the port; until then they are refused, not ignored.
+``cuda``).  ``--n_devices N`` runs the CLI as N processes, one per device
+of this host (``cuda:0..N-1`` over NCCL, or N gloo processes with
+``--device cpu``); ``--multihost`` makes this process one rank of a
+torchrun world (``parallel/dist.py``).  Without either flag the CLI is one
+process on one device, where the JAX CLIs take every device.  Only the
+trainers (``train_seg`` and its wrappers) and ``evaluate_val`` build a
+world, as only their JAX counterparts build a mesh; the other CLIs refuse
+the flags (``refuse_multi_device``).
 """
 
 from __future__ import annotations
@@ -11,7 +17,11 @@ import argparse
 import dataclasses
 import json
 
+import torch
+
+from .. import resolve_device
 from ..configs.presets import ExperimentConfig, get_preset
+from ..parallel import dist
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -34,12 +44,15 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--eval_limit", type=int, default=None,
                    help="evaluate only the first N val images (CI configs)")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="not supported yet (multi-GPU slice)")
+                   help="run as N processes, one per device of this host (cuda:0..N-1 over "
+                        "NCCL; N gloo processes with --device cpu); default: one process on "
+                        "one device (the JAX CLIs take every device)")
     p.add_argument("--compute_dtype", type=str, default=None,
                    choices=["bfloat16", "float32"])
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--multihost", action="store_true",
-                   help="not supported yet (multi-GPU slice)")
+                   help="this process is one rank of a torchrun world (reads RANK, "
+                        "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT)")
     p.add_argument("--extra", action="append", default=[], metavar="KEY=VALUE",
                    help="override an ExperimentConfig.extra entry (repeatable); "
                         "values parse as JSON when possible (True/False in any case as "
@@ -52,11 +65,49 @@ def base_parser(description: str) -> argparse.ArgumentParser:
 
 
 def refuse_multi_device(p: argparse.ArgumentParser, args) -> None:
+    """For the CLIs whose JAX counterparts build no mesh: one device only."""
     if args.n_devices is not None:
-        p.error("--n_devices is not supported by the port yet (multi-GPU slice); "
-                "it runs on one device")
+        p.error("--n_devices: this CLI runs on one device (its JAX counterpart builds no "
+                "mesh); the trainers and evaluate_val take it")
     if args.multihost:
-        p.error("--multihost is not supported by the port yet (multi-GPU slice)")
+        p.error("--multihost: this CLI runs on one device (its JAX counterpart builds no "
+                "mesh); the trainers and evaluate_val take it")
+
+
+def check_world(p: argparse.ArgumentParser, args) -> None:
+    """Refuse a world the flags cannot make: ``--multihost`` outside
+    torchrun's environment, a ``--n_devices`` other than its world size,
+    more ranks than devices."""
+    if args.multihost:
+        env = dist.torchrun_env()
+        if env is None:
+            p.error("--multihost reads torchrun's " + ", ".join(dist.TORCHRUN_ENV)
+                    + "; start the ranks with torchrun")
+        if args.n_devices is not None and args.n_devices != int(env["WORLD_SIZE"]):
+            p.error(f"--n_devices {args.n_devices} differs from torchrun's WORLD_SIZE "
+                    f"{env['WORLD_SIZE']}")
+    elif args.n_devices is not None:
+        try:
+            dist.check_devices(args.n_devices, torch.device(args.device).type)
+        except (RuntimeError, ValueError) as e:
+            p.error(str(e))
+
+
+def run_world(args, fn, *fn_args):
+    """``fn(*fn_args)`` in this process with no process group (no flag), or
+    on every rank of the world the flags ask for; rank 0's result."""
+    if args.n_devices is None and not args.multihost:
+        return fn(*fn_args)
+    return dist.launch(fn, args.n_devices or 1, torch.device(args.device).type, fn_args,
+                       multihost=args.multihost)
+
+
+def rank_device(args) -> torch.device:
+    """The rank's device under a process group, else ``--device`` (which
+    raises where a card is asked for and absent)."""
+    if dist.active():
+        return dist.local_device(torch.device(args.device).type)
+    return resolve_device(args.device)
 
 
 def apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:

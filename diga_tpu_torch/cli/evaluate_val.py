@@ -2,11 +2,17 @@
 
 Counterpart of ``diga_tpu/cli/evaluate_val.py`` (the reference
 evaluate_val.py and its DG multi-dataset variant,
-domain_generalization/evaluate_val.py:71-130), on one device.
+domain_generalization/evaluate_val.py:71-130).  One process on one device
+by default; ``--n_devices N`` (or ``--multihost`` under torchrun) shards
+every eval batch of N x ``--eval_batch`` images over the ranks, each
+scoring ``--eval_batch`` of them, and sums the confusion matrix over the
+ranks: the scores equal one process's exactly.  Each rank writes the
+``--dump_preds`` PNGs of its own images.  ``--shard spatial``
+(height-sharded eval, ROADMAP A15b) is refused.
 
 Usage:
   python -m diga_tpu_torch.cli.evaluate_val --preset gta2city_warmup \
-      --weight_dir ./work_dir/weights --target_root ./data/Cityscapes
+      --weight_dir ./work_dir/weights --target_root ./data/Cityscapes [--n_devices 8]
 """
 
 from __future__ import annotations
@@ -15,12 +21,12 @@ import os
 
 import torch
 
-from .. import resolve_device
 from ..data import bdd_dataset, cityscapes_dataset, mapillary_dataset
 from ..data.label_maps import CLASS_NAMES_16, CLASS_NAMES_19
 from ..eval.evaluator import TwoScaleEvaluator, iter_val
 from ..train.build import build_eval
-from .common import base_parser, get_config, refuse_multi_device
+from ..parallel import dist
+from .common import base_parser, check_world, get_config, rank_device, run_world
 
 _DATASETS = {"cityscapes": cityscapes_dataset, "bdd": bdd_dataset,
              "mapillary": mapillary_dataset}
@@ -40,15 +46,22 @@ def main(argv=None):
                    help="directory to write per-image trainId prediction PNGs; "
                         "one subdir per dataset when evaluating several")
     p.add_argument("--shard", type=str, default="batch", choices=["batch", "spatial"],
-                   help="'spatial' (height-sharded eval) belongs to the multi-GPU "
-                        "slice and is refused")
-    p.add_argument("--eval_batch", type=int, default=1, help="images per eval step")
+                   help="'batch': each rank scores its images of every eval batch; "
+                        "'spatial' (height-sharded eval) is not ported yet (A15b) and is "
+                        "refused")
+    p.add_argument("--eval_batch", type=int, default=1,
+                   help="images per eval step of each process")
     args = p.parse_args(argv)
-    refuse_multi_device(p, args)
+    check_world(p, args)
     if args.shard == "spatial":
-        p.error("--shard spatial is not supported by the port yet (multi-GPU slice)")
-    device = resolve_device(args.device)
-    cfg = get_config(args)
+        p.error("--shard spatial (height-sharded eval) is not ported yet: ROADMAP A15b; "
+                "use --shard batch")
+    return run_world(args, evaluate, get_config(args), args)
+
+
+def evaluate(cfg, args) -> dict:
+    """Score every dataset on this rank's share of the images."""
+    device = rank_device(args)
 
     eval_apply, _ = build_eval(cfg, args.weight_dir, device)
 
@@ -73,7 +86,8 @@ def main(argv=None):
             dump_dir = (args.dump_preds if len(dataset_names) == 1
                         else os.path.join(args.dump_preds, name))
             os.makedirs(dump_dir, exist_ok=True)
-        for i, batch in enumerate(iter_val(ds, args.eval_limit, batch=args.eval_batch)):
+        for i, batch in enumerate(iter_val(ds, args.eval_limit, batch=args.eval_batch,
+                                           rank=dist.rank(), world=dist.world())):
             pred = ev.update(batch["image"], batch["label"])
             if dump_dir is not None:
                 from PIL import Image
@@ -82,15 +96,17 @@ def main(argv=None):
                 for j, bname in enumerate(batch["names"]):
                     base = os.path.splitext(os.path.basename(bname))[0]
                     Image.fromarray(pred_np[j]).save(os.path.join(dump_dir, base + ".png"))
-            if i % 50 == 0:
+            if i % 50 == 0 and dist.is_writer():
                 print(f"eval: {i} batches processed", flush=True)
         scores, cls_iu = ev.score.get_scores()
+        results[name] = scores
+        if not dist.is_writer():
+            continue
         names = CLASS_NAMES_19 if cfg.eval.num_classes == 19 else CLASS_NAMES_16
         for i, cname in enumerate(names):
             print(f"===>{cname}: {cls_iu[i]}")
         for k, v in scores.items():
             print(f"{name} {k}: {v}")
-        results[name] = scores
     return results
 
 

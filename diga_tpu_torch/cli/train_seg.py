@@ -1,7 +1,11 @@
 """Segmentation trainer CLI: the warm-up, DG and self-training stages.
 
-Counterpart of ``diga_tpu/cli/train_seg.py`` (:50-119) on one device, with
-``--device`` (default ``cuda``).  Full-state checkpoints as the JAX
+Counterpart of ``diga_tpu/cli/train_seg.py`` (:50-119), with ``--device``
+(default ``cuda``).  One process on one device by default; ``--n_devices
+N`` trains data-parallel over N processes of this host, ``--multihost``
+as one rank of a torchrun world (``parallel/dist.py``): each rank loads
+the recipe batch, so the global batch is the recipe times the world, and
+only rank 0 writes.  Full-state checkpoints as the JAX
 trainer writes them (``utils/checkpoint.py``): ``--save_every`` N saves
 the state to ``<work_dir>/ckpt_final`` every N steps in the background,
 each new best mIoU writes ``<work_dir>/weights`` and ``<work_dir>/ckpt_best``
@@ -12,8 +16,8 @@ lays a reference ResNet-101 ``.pth`` (the Caffe init, or a
 ``state_dict``-wrapped checkpoint) over DeepLab's backbone, or an ImageNet
 hrnetv2 ``.pth`` over HRNet's (the semi-supervised presets).  Refused,
 with a message: ``--pretrained_backbone auto`` (it downloads; the port
-fetches nothing), the multi-device flags, the translator stage (its CLI
-is ``train_domain_translator``) and the JAX HRNet's TPU knobs (``--extra
+fetches nothing), the translator stage (its CLI is
+``train_domain_translator``) and the JAX HRNet's TPU knobs (``--extra
 hrnet_pad``, ``remat_policy``, ``remat``).  ``--extra fuse_forwards=true``
 runs the self-training step in its throughput mode: one teacher and one
 student forward a step over the concatenated batches, whose pooled BN
@@ -35,18 +39,21 @@ Usage:
   (``--parity`` on any of them: f32 and the kornia photometric chain;
   ``--resume`` continues a run in the same ``--work_dir``;
   ``--extra fuse_forwards=true`` on a self-training preset)
+  python -m diga_tpu_torch.cli.train_warm_up --preset gta2city_warmup --n_devices 8 ...
+  torchrun --nnodes 2 --nproc_per_node 8 ... -m diga_tpu_torch.cli.train_warm_up \
+      --preset gta2city_warmup --multihost ...
 """
 
 from __future__ import annotations
 
 import os
 
-from .. import resolve_device
+from ..parallel import dist
 from ..train.build import (TRAIN_STAGES, build_experiment, check_model_config,
                            export_state_role_keyed, make_step_config)
 from ..train.loop import run_training
 from ..utils.checkpoint import restore_train_state, save_train_state
-from .common import base_parser, get_config, refuse_multi_device
+from .common import base_parser, check_world, get_config, rank_device, run_world
 
 
 def main(argv=None, force_stage: str | None = None):
@@ -66,7 +73,7 @@ def main(argv=None, force_stage: str | None = None):
                    help="restore the full train state (weights, momentum, step, centroids, "
                         "generators) from <work_dir>/ckpt_final if present")
     args = p.parse_args(argv)
-    refuse_multi_device(p, args)
+    check_world(p, args)
     if args.pretrained_backbone == "auto":
         p.error("--pretrained_backbone auto downloads the Caffe ResNet-101 init, which the port "
                 "does not do: fetch the file elsewhere and pass its path")
@@ -81,13 +88,22 @@ def main(argv=None, force_stage: str | None = None):
         check_model_config(cfg)
     except (NotImplementedError, ValueError) as e:
         p.error(str(e))
-    device = resolve_device(args.device)
+    return run_world(args, train, cfg, args)
+
+
+def train(cfg, args):
+    """Build, train and save on this rank (every rank of a world runs it)."""
+    device = rank_device(args)
+    if dist.active():
+        print(f"rank {dist.rank()} of world {dist.world()}, backend {dist.backend()}, on "
+              f"{device}", flush=True)
     state, step, eval_apply = build_experiment(cfg, device, args.load_weight_dir,
                                                args.centroid_path, args.pretrained_backbone)
     ckpt_final = os.path.join(args.work_dir, "ckpt_final")
-    if args.resume and os.path.exists(ckpt_final):
+    if args.resume and os.path.exists(ckpt_final):  # every rank restores
         restore_train_state(ckpt_final, state)
-        print(f"resumed from {ckpt_final} at step {state.step}", flush=True)
+        if dist.is_writer():
+            print(f"resumed from {ckpt_final} at step {state.step}", flush=True)
 
     def on_best(state, i, miou):
         export_state_role_keyed(state, os.path.join(args.work_dir, "weights"))
@@ -97,6 +113,8 @@ def main(argv=None, force_stage: str | None = None):
     result = run_training(cfg, state, step, eval_apply, work_dir=args.work_dir, device=device,
                           num_steps=args.num_steps, eval_limit=args.eval_limit, on_best=on_best,
                           save_every=args.save_every, save_path=ckpt_final)
+    if not dist.is_writer():
+        return result
     save_train_state(ckpt_final, state)
     if result.best_miou > 0:
         where = f"best weights in {args.work_dir}/weights and {args.work_dir}/ckpt_best"

@@ -2,11 +2,17 @@
 
 The port's own copy of ``diga_tpu/data/pipeline.py::BatchLoader`` (:23-110)
 with ``EpochShuffleSampler`` and ``collate`` from
-``diga_tpu/data/datasets.py`` (:266-331), on one host.  PIL/numpy decode
-releases the interpreter lock for most of its work, so threads make an
-effective worker pool.  Every sample's augmentation draws come from a
-numpy ``Generator`` keyed by (seed, stream position), so a batch's pixels
-do not depend on the worker count.
+``diga_tpu/data/datasets.py`` (:266-331).  PIL/numpy decode releases the
+interpreter lock for most of its work, so threads make an effective
+worker pool.  Every sample's augmentation draws come from a numpy
+``Generator`` keyed by (seed, stream position), so a batch's pixels do
+not depend on the worker count.
+
+Host sharding (``pipeline.py:57-82``): global batch b spans stream
+positions [b·Bg, (b+1)·Bg) with Bg = ``batch_size`` · ``host_count``, and
+host h builds the contiguous rows from b·Bg + h·``batch_size``.  The
+hosts' batches concatenated in host order are the one-host batch of
+``batch_size`` · ``host_count``, bit for bit, for any worker count.
 """
 
 from __future__ import annotations
@@ -22,11 +28,14 @@ from .datasets import SegDataset
 
 class EpochShuffleSampler:
     """Position -> dataset index: epoch p // n, slot p % n of that epoch's
-    permutation drawn from (seed, epoch)."""
+    permutation drawn from (seed, epoch).  ``host_id``/``host_count`` are
+    kept for introspection, as JAX's: ``BatchLoader`` does the sharding."""
 
-    def __init__(self, n: int, seed: int = 0):
+    def __init__(self, n: int, seed: int = 0, host_id: int = 0, host_count: int = 1):
         self.n = n
         self.seed = seed
+        self.host_id = host_id
+        self.host_count = host_count
         self._orders: dict[int, np.ndarray] = {}
         self._lock = threading.Lock()
 
@@ -61,20 +70,28 @@ class BatchLoader:
     place of the batch, and the consumer raises it there."""
 
     def __init__(self, dataset: SegDataset, batch_size: int, seed: int = 0,
-                 num_workers: int = 4, prefetch: int = 4):
+                 num_workers: int = 4, prefetch: int = 4, host_id: int = 0,
+                 host_count: int = 1):
+        if not 0 <= host_id < host_count:
+            raise ValueError(f"host_id {host_id} of host_count {host_count}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
-        self.sampler = EpochShuffleSampler(len(dataset), seed=seed)
+        self.host_id = host_id
+        self.host_count = host_count
+        self.sampler = EpochShuffleSampler(len(dataset), seed=seed, host_id=host_id,
+                                           host_count=host_count)
         self.num_workers = max(1, num_workers)
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
 
     def _producer(self, worker_id: int) -> None:
+        bg = self.batch_size * self.host_count
+        base = self.host_id * self.batch_size
         batch_idx = worker_id
         while not self._stop.is_set():
-            positions = [batch_idx * self.batch_size + j for j in range(self.batch_size)]
+            positions = [batch_idx * bg + base + j for j in range(self.batch_size)]
             try:
                 samples = [self.dataset.__getitem__(self.sampler.index_at(p),
                                                     rng=np.random.default_rng((self.seed, p)))

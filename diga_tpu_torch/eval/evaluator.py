@@ -1,4 +1,4 @@
-"""Two-scale max-merge evaluation on one device.
+"""Two-scale max-merge evaluation, on one device or batch-sharded over ranks.
 
 Counterpart of ``diga_tpu/eval/evaluator.py`` (:27-39 and
 ``TwoScaleEvaluator``).  Protocol (reference: evaluate_val.py:73-93):
@@ -9,6 +9,12 @@ Counterpart of ``diga_tpu/eval/evaluator.py`` (:27-39 and
   5. accumulate the confusion matrix on the device
 
 Tensors at this surface are NHWC, as in the JAX package.
+
+Batch-sharded over a process group (``diga_tpu/eval/evaluator.py:55-113``):
+``iter_val(..., rank, world)`` gives rank r its ``batch`` images of every
+eval batch of ``world`` x ``batch``, the tail padded as one process pads
+it, and ``RunningScore.get_scores`` sums the int64 confusion matrix over
+the ranks, so every rank gets the one-process mIoU exactly.
 """
 
 from __future__ import annotations
@@ -22,23 +28,30 @@ from ..ops.metrics import RunningScore
 from ..ops.resize import resize_bilinear
 
 
-def iter_val(ds, limit=None, batch=1):
-    """Fixed-shape batches of ``batch`` images from a val dataset.  The final
-    partial batch is padded by repeating the last image with all-ignore
-    (255) labels, which contribute nothing to the confusion matrix;
-    ``names`` lists only the real entries so prediction dumps skip the
-    padding."""
+def iter_val(ds, limit=None, batch=1, rank: int = 0, world: int = 1):
+    """Fixed-shape batches of ``batch`` images from a val dataset: rank
+    ``rank``'s rows of every eval batch of ``world`` x ``batch`` images.
+    The final partial batch is padded by repeating the last image with
+    all-ignore (255) labels, which contribute nothing to the confusion
+    matrix; ``names`` lists only the real entries of the rank's rows, and
+    ``valid`` counts them, so prediction dumps skip the padding."""
     n = len(ds) if limit is None else min(limit, len(ds))
-    for start in range(0, n, batch):
-        samples = [ds[i] for i in range(start, min(start + batch, n))]
+    step = batch * world
+    for start in range(0, n, step):
+        lo = start + rank * batch
+        samples = [ds[i] for i in range(min(lo, n), min(lo + batch, n))]
         k = len(samples)
+        if not samples:  # this rank's rows are all padding
+            samples = [ds[n - 1]]
         images = [s["image"] for s in samples]
         labels = [s["label"].astype(np.int32) for s in samples]
+        if k == 0:
+            labels = [np.full_like(labels[0], 255)]
         while len(images) < batch:
             images.append(images[-1])
             labels.append(np.full_like(labels[-1], 255))
         yield {"image": np.stack(images), "label": np.stack(labels),
-               "names": [s["name"] for s in samples], "valid": k}
+               "names": [s["name"] for s in samples[:k]], "valid": k}
 
 
 def two_scale_logits(apply_fn: Callable, image: torch.Tensor,

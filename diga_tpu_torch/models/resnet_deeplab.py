@@ -44,6 +44,7 @@ import torch.nn as nn
 
 from .. import MEMORY_FORMAT
 from ..ops.group_norm import group_norm, group_norm_plain
+from ..parallel import dist
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention; flax 0.9
@@ -122,7 +123,10 @@ class ChannelDropout(nn.Module):
     """Dropout2d: zero whole channels with probability ``p`` in train mode,
     scale the kept ones by 1/(1-p) (the JAX ``nn.Dropout`` with
     ``broadcast_dims=(1, 2)``).  The mask comes from ``self.generator``
-    (the default generator where it is None)."""
+    (the default generator where it is None).  Under a process group the
+    (B, C, 1, 1) mask is drawn at the global batch's shape and the rank
+    keeps its rows (``parallel.dist.draw_local``, laid out by the step's
+    ``batch_segments``), as one process over the global batch draws it."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -133,8 +137,8 @@ class ChannelDropout(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        u = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=self.generator,
-                       device=x.device)
+        u = dist.draw_local(lambda n: torch.rand((n, x.shape[1], 1, 1), generator=self.generator,
+                                                 device=x.device), x.shape[0])
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 

@@ -23,6 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel import dist
+
 IGNORE = 255
 
 
@@ -54,17 +56,25 @@ def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, thresh: float
     probability of the ``min(min_kept, n_valid - 1)``-th least likely valid
     pixel); a non-finite such probability (no valid pixel) counts as 0, and
     the mean is over at least one pixel.  The kept set carries no gradient.
-    The selection sorts on the device: no host synchronisation."""
+    The selection sorts on the device: no host synchronisation.
+
+    Under a process group the selection is over the global batch, as the
+    JAX step's over its mesh: the threshold comes from every rank's
+    probabilities gathered, and the local kept sum is scaled by world /
+    the global kept count, so the ranks' average is the global mean."""
     nll, valid = _nll_map(logits, labels)
     nll, valid = nll.reshape(-1), valid.reshape(-1)
     prob = torch.exp(-nll.detach())
-    ranked = torch.sort(torch.where(valid, prob, torch.full_like(prob, torch.inf))).values
-    n_valid = valid.sum()
+    masked = torch.where(valid, prob, torch.full_like(prob, torch.inf))
+    ranked = torch.sort(dist.gather_rows(masked)).values
+    n_valid = torch.isfinite(ranked).sum() if dist.active() else valid.sum()
     k = torch.clamp(torch.clamp(n_valid - 1, min=0), max=min_kept)
     min_value = ranked.gather(0, k.reshape(1))[0]
     min_value = torch.where(torch.isfinite(min_value), min_value, torch.zeros_like(min_value))
     keep = valid & (prob < torch.clamp(min_value, min=thresh))
     total = torch.sum(torch.where(keep, nll, torch.zeros_like(nll)))
+    if dist.active():
+        return total * dist.world() / torch.clamp(dist.all_reduce_sum(keep.sum()), min=1)
     return total / torch.clamp(keep.sum(), min=1)
 
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel import dist
+
 
 def confusion_update(conf: torch.Tensor, label_true: torch.Tensor,
                      label_pred: torch.Tensor, n_class: int) -> torch.Tensor:
@@ -74,4 +76,6 @@ class RunningScore:
             torch.as_tensor(label_pred, device=self.device), self.n_classes)
 
     def get_scores(self) -> tuple[dict, dict]:
-        return scores_from_confusion(self.confusion.cpu().numpy())
+        """The scores of the confusion matrix; under a process group of the
+        matrix summed over the ranks (int64, exact), so every rank calls it."""
+        return scores_from_confusion(dist.all_reduce_sum(self.confusion).cpu().numpy())

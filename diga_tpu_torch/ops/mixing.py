@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import dist
+
 IGNORE = 255
 
 
@@ -42,7 +44,9 @@ def sample_half_classes(labels: torch.Tensor, generator: torch.Generator,
     (ignore counted), plus the ignore slot."""
     present = class_presence(labels, num_classes)
     k = torch.floor(present.sum(dim=-1, keepdim=True) / 2.0)
-    scores = torch.rand(present.shape, generator=generator, device=labels.device)
+    # under a process group: drawn for the global batch, this rank's rows kept
+    scores = dist.draw_local(lambda n: torch.rand((n, present.shape[1]), generator=generator,
+                                                  device=labels.device), present.shape[0])
     scores = torch.where(present > 0, scores, torch.full_like(scores, -torch.inf))
     order = torch.argsort(-scores, dim=-1, stable=True)
     ranks = torch.argsort(order, dim=-1, stable=True).to(torch.float32)

@@ -34,6 +34,8 @@ from ..models.hrnet_ocr import ARCHS, HRNetOCR
 from ..models.resnet_deeplab import DeepLabV2
 from ..models.translator import ImgDecoder, ImgEncoder
 from ..ops.prototypes import Centroids
+from ..parallel import dist
+from ..parallel.sync_bn import convert_sync_bn
 from ..utils.checkpoint import export_role_keyed, load_role_keyed
 from .optim import sgd_grouped
 from .schedules import poly_schedule, poly_warmup_schedule
@@ -247,6 +249,11 @@ def build_experiment(cfg: ExperimentConfig, device: torch.device,
     the translator takes the photometric view as its second view.
     ``eval_apply`` runs the student in eval mode under the compute dtype's
     autocast.
+
+    Under a process group (``parallel/dist.py``; ``device`` is then the
+    rank's own) every BN of the student, and so of its copy the teacher,
+    becomes a ``SyncBatchNorm2d``, and the student, the frozen translator
+    and the centroids are broadcast from rank 0 before the state is made.
     """
     if cfg.stage not in TRAIN_STAGES:
         raise NotImplementedError(
@@ -266,10 +273,16 @@ def build_experiment(cfg: ExperimentConfig, device: torch.device,
         student.load_state_dict(load_role_keyed(load_weight_dir, ["student"])["student"],
                                 strict=True)
     student.to(device)
+    convert_sync_bn(student)
+    dist.broadcast_module(student)
     translator = None
     if cfg.stage in ("warmup", "selftrain") and not cfg.extra.get("no_translator", False):
         translator = init_translator_frozen(cfg, load_weight_dir, device)
+        dist.broadcast_module(translator)
     centroids = load_centroids(cfg, centroid_path) if cfg.stage == "selftrain" else None
+    if centroids is not None and dist.active():
+        centroids = Centroids(centroids.vectors.to(device), centroids.counts.to(device))
+        dist.broadcast_tensors([centroids.vectors, centroids.counts])
     t = cfg.train
     optimizer = sgd_grouped(student, t.learning_rate, t.momentum, t.weight_decay, t.head_lr_mult)
     state = create_seg_state(student, optimizer, t.seed, translator, centroids)

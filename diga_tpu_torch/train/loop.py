@@ -20,6 +20,13 @@ Counterpart of ``diga_tpu/train/loop.py`` (:40-312) on one device:
     loss and mIoU curve PNGs beside ``metrics.jsonl`` at the end (:310).
 The caller writes the final state (``ckpt_final``).  The translator
 stage's two-stream iterator is ``make_translator_iterator``.
+
+Under a process group (``parallel/dist.py``) every rank runs the loop on
+its share of each batch; the in-loop eval is batch-sharded (rank r scores
+its images of every eval batch of world size, the confusion matrix summed
+over the ranks); only the writer, rank 0, writes: ``metrics.jsonl`` and
+the log lines, ``on_best``, the ``save_every`` saves, the trace, the views
+and the curves.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from ..data import (
 from ..data.loader import BatchLoader
 from ..data.prefetch import device_prefetch
 from ..eval.evaluator import TwoScaleEvaluator, iter_val
+from ..parallel import dist
 from ..utils.checkpoint import save_train_state, wait_for_checkpoints
 from ..utils.logging import MetricLogger
 from ..utils.visualize import dump_train_views
@@ -96,11 +104,15 @@ def build_dataset(spec: LoaderSpec, data_cfg: DataConfig, crop_hw, is_source: bo
 
 class MultiStreamLoader:
     """Concatenates the dual-scale streams of one domain into one batch
-    (reference warm_up.py:208-230; both are cropped to the same size)."""
+    (reference warm_up.py:208-230; both are cropped to the same size).
+    Each stream is host-sharded: this host's rows of every global batch
+    (``data/loader.py``)."""
 
-    def __init__(self, datasets_and_batches, seed: int, num_workers: int):
+    def __init__(self, datasets_and_batches, seed: int, num_workers: int, host_id: int = 0,
+                 host_count: int = 1):
         self.loaders = [BatchLoader(ds, batch_size=b, seed=seed + 17 * i,
-                                    num_workers=num_workers)
+                                    num_workers=num_workers, host_id=host_id,
+                                    host_count=host_count)
                         for i, (ds, b) in enumerate(datasets_and_batches)]
 
     def __iter__(self) -> Iterator[dict]:
@@ -118,17 +130,22 @@ class MultiStreamLoader:
 
 def make_train_iterator(cfg: ExperimentConfig, with_target: bool):
     """(iterator of {'s_img', 's_lbl'[, 't_img', 't_lbl'[, 't_pseudo']]}
-    numpy batches, the loaders to stop)."""
+    numpy batches, the loaders to stop).  Every stream carries the recipe
+    batch on each rank, host-sharded by the rank and the world of the
+    process group (one host without one), so the global batch is the
+    recipe times the world (``diga_tpu/train/loop.py:117-127``)."""
     crop = cfg.train.crop_hw
+    hosts = dict(host_id=dist.rank(), host_count=dist.world())
     src = MultiStreamLoader([(build_dataset(s, cfg.data, crop, True), s.batch)
                              for s in cfg.data.source_streams],
-                            seed=cfg.train.seed, num_workers=cfg.data.num_workers)
+                            seed=cfg.train.seed, num_workers=cfg.data.num_workers, **hosts)
     loaders = [src]
     tgt = None
     if with_target:
         tgt = MultiStreamLoader([(build_dataset(s, cfg.data, crop, False), s.batch)
                                  for s in cfg.data.target_streams],
-                                seed=cfg.train.seed + 1000, num_workers=cfg.data.num_workers)
+                                seed=cfg.train.seed + 1000, num_workers=cfg.data.num_workers,
+                                **hosts)
         loaders.append(tgt)
 
     def gen():
@@ -147,8 +164,8 @@ def make_train_iterator(cfg: ExperimentConfig, with_target: bool):
 
 def make_translator_iterator(cfg: ExperimentConfig):
     """(iterator of {'s_img', 's_lbl', 't_img'} numpy batches, the loaders to
-    stop): the translator's source and target streams, seeded as the seg
-    stages' (``diga_tpu/cli/train_domain_translator.py:125-146``)."""
+    stop): the translator's source and target streams, seeded and
+    host-sharded as the seg stages' (``diga_tpu/cli/train_domain_translator.py:125-146``)."""
     it, loaders = make_train_iterator(cfg, with_target=True)
     batches = ({"s_img": b["s_img"], "s_lbl": b["s_lbl"].astype(np.int32), "t_img": b["t_img"]}
                for b in it)
@@ -210,8 +227,10 @@ def run_training(cfg: ExperimentConfig, state: SegTrainState, step_fn: Callable,
     ``on_best(state, i, miou)`` on each new best mIoU; a background
     full-state save to ``save_path`` at every ``i > 0`` divisible by
     ``save_every`` (0 = none); a profiler trace of steps ``profile_steps``
-    (both included) and train-view grids every ``viz_every`` steps."""
-    logger = MetricLogger(work_dir)
+    (both included) and train-view grids every ``viz_every`` steps.  Under
+    a process group every rank calls it; only rank 0 writes."""
+    writer = dist.is_writer()
+    logger = MetricLogger(work_dir) if writer else None
     steps = num_steps if num_steps is not None else cfg.train.num_steps
     host_it, loaders = make_train_iterator(cfg, wants_target(cfg))
     it = device_prefetch(host_it, device, buffer_size=2)
@@ -222,7 +241,7 @@ def run_training(cfg: ExperimentConfig, state: SegTrainState, step_fn: Callable,
     t_last = time.time()
     try:
         for i in range(state.step, steps):
-            if profile_steps and i == profile_steps[0]:
+            if writer and profile_steps and i == profile_steps[0]:
                 prof = _start_profile(device)
             batch = next(it)
             batch.pop("t_lbl", None)
@@ -230,13 +249,13 @@ def run_training(cfg: ExperimentConfig, state: SegTrainState, step_fn: Callable,
             if prof is not None and i == profile_steps[1]:
                 _stop_profile(prof, device, os.path.join(work_dir, "profile"))
                 prof = None
-            if viz_every and i % viz_every == 0:
+            if writer and viz_every and i % viz_every == 0:
                 dump_train_views(os.path.join(work_dir, "views"), i,
                                  {"source": batch["s_img"][:2].cpu().numpy()},
                                  {"label": batch["s_lbl"][:2].cpu().numpy()})
-            if save_every and save_path and i > 0 and i % save_every == 0:
+            if writer and save_every and save_path and i > 0 and i % save_every == 0:
                 save_train_state(save_path, state, background=True)
-            if i % log_every == 0:
+            if writer and i % log_every == 0:
                 host = {k: float(v) for k, v in metrics.items()}
                 dt, t_last = time.time() - t_last, time.time()
                 host["steps_per_sec"] = (log_every if i else 1) / max(dt, 1e-9)
@@ -251,24 +270,27 @@ def run_training(cfg: ExperimentConfig, state: SegTrainState, step_fn: Callable,
                 ds = cityscapes_dataset(cfg.data.target_root, cfg.data.val_img_list,
                                         cfg.data.val_lbl_list, split="val",
                                         resize_hw=cfg.eval.out_hw)
-                for vb in iter_val(ds, eval_limit):
+                for vb in iter_val(ds, eval_limit, rank=dist.rank(), world=dist.world()):
                     evaluator.update(vb["image"], vb["label"])
                 miou = float(evaluator.score.get_scores()[0]["mean_iou"])
-                logger.log(i, {"miou": miou}, prefix="val/")
-                print(f"step {i}: val mIoU {miou:.4f}", flush=True)
+                if writer:
+                    logger.log(i, {"miou": miou}, prefix="val/")
+                    print(f"step {i}: val mIoU {miou:.4f}", flush=True)
                 if miou > best_miou:
                     best_miou, best_step = miou, i
-                    if on_best is not None:
+                    if on_best is not None and writer:
                         on_best(state, i, miou)
         if prof is not None:  # the run ended inside the profiled window
             _stop_profile(prof, device, os.path.join(work_dir, "profile"))
             prof = None
-        logger.plot()
+        if writer:
+            logger.plot()
     finally:
         if prof is not None:
             prof.stop()
         for ld in loaders:
             ld.stop()
-        logger.close()
+        if writer:
+            logger.close()
         wait_for_checkpoints()
     return TrainLoopResult(best_miou, best_step, {k: float(v) for k, v in metrics.items()})

@@ -43,6 +43,17 @@ name (``DeepLabV2``, ``HRNetOCR``), the frozen translator by module
 term), ``distill``, ``resize``, ``ema`` and ``sgd``: the names
 ``utils/profiling.py::default_component``, the JAX package's rule, reads.
 A scope only marks a span of the profiler's trace: it computes nothing.
+
+Under a process group (``parallel/dist.py``) the same order of operations
+runs on every rank's share of the global batch: the BNs are
+``SyncBatchNorm2d`` (``train/build.py``), the gradients are averaged over
+the ranks before the SGD step, the centroid scan runs over every rank's
+rows in global order, OHEM selects over the global batch, every per-image
+draw (photometric, CrDoMix/DACS selections, channel dropout) is made at
+the global batch's shape and sliced, and the returned metrics are the
+ranks' average.  A concatenated batch stays local: ``[source; view]`` is
+the rank's own source and view, laid out for the dropout draw by
+``dist.batch_segments``.  An injected draw takes the rank's rows.
 """
 
 from __future__ import annotations
@@ -63,6 +74,7 @@ from ..ops import prototypes
 from ..ops.ema import ema_alpha, ema_update
 from ..ops.losses import cross_entropy2d, ohem_cross_entropy
 from ..ops.resize import resize_bilinear
+from ..parallel import dist
 from .optim import set_lr
 from .state import SegTrainState
 
@@ -136,16 +148,19 @@ def in_scope(name: str, step: Callable) -> Callable:
     return scoped
 
 
-def _forward(model, x: torch.Tensor):
-    """``model(x)`` in a scope named after the model's class."""
-    with scope(type(model).__name__):
+def _forward(model, x: torch.Tensor, segments: tuple[int, ...] = ()):
+    """``model(x)`` in a scope named after the model's class; ``segments``:
+    the local sizes of the parts ``x`` concatenates (one part if empty),
+    for the dropout draw under a process group."""
+    with scope(type(model).__name__), dist.batch_segments(*(segments or (x.shape[0],))):
         return model(x)
 
 
-def _logits_up(cfg: StepConfig, model, x: torch.Tensor, with_aux: bool = False):
+def _logits_up(cfg: StepConfig, model, x: torch.Tensor, with_aux: bool = False,
+               segments: tuple[int, ...] = ()):
     """The model's logits on the NHWC batch ``x``, bilinearly upsampled to
     the crop, as NHWC; with ``with_aux`` also the aux logits, likewise."""
-    _, aux, logits, _ = _forward(model, _model_input(cfg, x))
+    _, aux, logits, _ = _forward(model, _model_input(cfg, x), segments)
     with scope("resize"):
         up = resize_bilinear(_nhwc(logits), cfg.crop_hw)
         return (up, resize_bilinear(_nhwc(aux), cfg.crop_hw)) if with_aux else up
@@ -163,7 +178,9 @@ def _photometric(cfg: StepConfig, generator: torch.Generator, img: torch.Tensor,
     with scope("photometric"):
         if draws is None:
             draw = P.draw_kornia if cfg.photometric == "kornia" else P.draw
-            draws = draw(generator, img.shape[0], p_jitter=cfg.p_jitter)
+            # kornia's jitter order is one permutation for the whole batch
+            draws = dist.draw_local(lambda n: draw(generator, n, p_jitter=cfg.p_jitter),
+                                    img.shape[0], shared=("order",))
         return P.diga_photometric(img, draws, cfg.beta, variant=cfg.photometric,
                                   with_sharpness=cfg.with_sharpness)
 
@@ -187,6 +204,7 @@ def _ema(state: SegTrainState) -> None:
 
 def _sgd_step(state: SegTrainState, schedule: Callable[[int], float]) -> None:
     with scope("sgd"):
+        dist.all_reduce_grads(p for g in state.optimizer.param_groups for p in g["params"])
         set_lr(state.optimizer, schedule(state.step))
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
@@ -201,9 +219,9 @@ def _distill_and_update(cfg: StepConfig, schedule, state: SegTrainState, s_cat: 
     aux = cfg.aux_weight > 0
     seg_loss = _seg_loss_fn(cfg)
     with torch.no_grad(), amp:
-        t_up = _logits_up(cfg, state.teacher, s_cat, aux)
+        t_up = _logits_up(cfg, state.teacher, s_cat, aux, (b, b))
     with amp:
-        s_up = _logits_up(cfg, state.student, s_cat, aux)
+        s_up = _logits_up(cfg, state.student, s_cat, aux, (b, b))
         if aux:
             (t_up, t_aux_up), (s_up, s_aux_up) = t_up, s_up
         with scope("cross_entropy"):
@@ -221,7 +239,8 @@ def _distill_and_update(cfg: StepConfig, schedule, state: SegTrainState, s_cat: 
         with torch.no_grad(), amp, scope(type(state.student).__name__):
             state.student.bn_stats_forward(_model_input(cfg, t_img))
     _sgd_step(state, schedule)
-    return {"loss": total.detach(), "loss_semseg": ce.detach(), "loss_distil": distil.detach()}
+    return dist.mean_metrics({"loss": total.detach(), "loss_semseg": ce.detach(),
+                              "loss_distil": distil.detach()})
 
 
 def build_dg_step(cfg: StepConfig, schedule: Callable[[int], float]) -> Callable:
@@ -320,14 +339,16 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
 
         with torch.no_grad():
             with amp:
+                nt = t_img.shape[0]
                 if cfg.fuse_forwards:
-                    nt = t_img.shape[0]
                     _, _, a_logits, a_feat = _forward(
-                        state.teacher, _model_input(cfg, torch.cat([s_cat, t_img], dim=0)))
+                        state.teacher, _model_input(cfg, torch.cat([s_cat, t_img], dim=0)),
+                        (b, b, nt))
                     st_logits, tt_logits = a_logits[:-nt], a_logits[-nt:]
                     st_feat, tt_feat = a_feat[:-nt], a_feat[-nt:]
                 else:
-                    _, _, st_logits, st_feat = _forward(state.teacher, _model_input(cfg, s_cat))
+                    _, _, st_logits, st_feat = _forward(state.teacher, _model_input(cfg, s_cat),
+                                                        (b, b))
                     _, _, tt_logits, tt_feat = _forward(state.teacher, _model_input(cfg, t_img))
             st_logits, st_feat = _nhwc(st_logits), _nhwc(st_feat)
             tt_logits, tt_feat = _nhwc(tt_logits), _nhwc(tt_feat)
@@ -345,19 +366,22 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
                                                             dacs_selection, k)
 
             with scope("prototypes"):
+                # the scan runs over every rank's images in global order
                 vec_t, ok_t = prototypes.masked_class_means(tt_feat, tt_logits, t_consensus)
-                cents = prototypes.update_centroids(state.centroids, vec_t, ok_t,
-                                                    start_mean=False)
+                cents = prototypes.update_centroids(state.centroids, dist.gather_rows(vec_t),
+                                                    dist.gather_rows(ok_t), start_mean=False)
                 vec_s, ok_s = prototypes.masked_class_means(st_feat[b:], st_logits[b:], s_lbl)
-                cents = prototypes.update_centroids(cents, vec_s, ok_s, start_mean=False)
+                cents = prototypes.update_centroids(cents, dist.gather_rows(vec_s),
+                                                    dist.gather_rows(ok_s), start_mean=False)
 
         with amp:
+            nc = cross_img.shape[0]
             if cfg.fuse_forwards:
-                nc = cross_img.shape[0]
-                f_up = _logits_up(cfg, state.student, torch.cat([s_cat, cross_img], dim=0))
+                f_up = _logits_up(cfg, state.student, torch.cat([s_cat, cross_img], dim=0),
+                                  segments=(b, b, nc))
                 s_up, cross_up = f_up[:-nc], f_up[-nc:]
             else:
-                s_up = _logits_up(cfg, state.student, s_cat)
+                s_up = _logits_up(cfg, state.student, s_cat, segments=(b, b))
                 cross_up = _logits_up(cfg, state.student, cross_img)
             seg_loss = _seg_loss_fn(cfg)
             with scope("cross_entropy"):
@@ -369,8 +393,9 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
         total.backward()
         _sgd_step(state, schedule)
         state.centroids = cents
-        return {"loss": total.detach(), "loss_semseg": ce.detach(),
-                "loss_crossmix": ce_cross.detach(), "loss_distil": distil.detach(),
-                "consensus_kept": (t_consensus != prototypes.IGNORE).to(torch.float32).mean()}
+        return dist.mean_metrics({
+            "loss": total.detach(), "loss_semseg": ce.detach(),
+            "loss_crossmix": ce_cross.detach(), "loss_distil": distil.detach(),
+            "consensus_kept": (t_consensus != prototypes.IGNORE).to(torch.float32).mean()})
 
     return in_scope("train_step", step)

@@ -28,6 +28,12 @@ profiler scope, each module call in a scope named after its class
 and each Adam update in ``scale_by_adam`` (optax's name for Adam's
 transform, which ``utils/profiling.py::default_component`` reads as
 ``optimizer_ema``).
+
+Under a process group (``parallel/dist.py``) each rank steps on its share
+of the global batch: every Adam step follows the average of its role's
+gradients over the ranks, and the metrics are the ranks' average.  The
+losses are means over equal shards and the modules have no BatchNorm
+(InstanceNorm is per sample), so this is the step on the global batch.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models.vgg import VGG19Features, vgg_perceptual_loss
 from ..ops import losses as L
+from ..parallel import dist
 from .optim import adam_translator, set_lr
 from .steps import _autocast, in_scope
 
@@ -113,6 +120,7 @@ def build_translator_step(cfg: TranslatorConfig, schedule: Callable[[int], float
     def update(state: TranslatorState, role: str) -> None:
         opt = state.optimizers[role]
         with scope("scale_by_adam"):
+            dist.all_reduce_grads(state.modules[role].parameters())
             set_lr(opt, schedule(state.step))
             opt.step()
 
@@ -194,7 +202,8 @@ def build_translator_step(cfg: TranslatorConfig, schedule: Callable[[int], float
         for r in GEN_ROLES:
             update(state, r)
         state.step += 1
-        return {"loss_g": total.detach(), "loss_d_s2t": loss_d_s2t, "loss_d_t2s": loss_d_t2s,
-                **{k: v.detach() for k, v in aux.items()}}
+        return dist.mean_metrics({"loss_g": total.detach(), "loss_d_s2t": loss_d_s2t,
+                                  "loss_d_t2s": loss_d_t2s,
+                                  **{k: v.detach() for k, v in aux.items()}})
 
     return in_scope("translator_step", step)

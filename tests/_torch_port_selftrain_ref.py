@@ -21,6 +21,7 @@ pytest process (tests/test_e2e_selftrain.py:86-88); a fresh process
 compiles it in a few GB, so the test runs this file as a subprocess.
 """
 
+import functools
 import re
 import sys
 import types
@@ -69,9 +70,26 @@ def _flat(prefix: str, sd: dict) -> dict:
     return {f"{prefix}|{k}": np.asarray(v) for k, v in sd.items()}
 
 
-def main(out_dir: str, variant: str = "gta") -> None:
+def setup(variant: str = "gta"):
+    """(jax state, jitted step, snapshot(state) -> {key: array}, the initial
+    arrays of ``init.npz``) of ``variant``."""
+    import jax
+
+    from diga_tpu.train.steps import StepConfig, build_selftrain_step
+
     K, step_opts = VARIANTS[variant]["num_classes"], VARIANTS[variant]["step"]
-    aspp_gn_bias = VARIANTS[variant]["aspp_gn_bias"]
+    model, opt, translator_apply, state, snapshot, init = _initial_state(
+        K, VARIANTS[variant]["aspp_gn_bias"])
+    cfg = StepConfig(num_classes=K, crop_hw=CROP, beta=0.0, lambda_distil=LAMBDA_DISTIL,
+                     **step_opts)
+    step = jax.jit(build_selftrain_step(model, translator_apply, opt, cfg))
+    return state, step, snapshot, init
+
+
+@functools.lru_cache(maxsize=None)
+def _initial_state(K: int, aspp_gn_bias):
+    """(model, optimizer, translator_apply, state, snapshot, init arrays),
+    shared by the variants of one class count and GroupNorm bias."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -79,12 +97,10 @@ def main(out_dir: str, variant: str = "gta") -> None:
 
     from diga_tpu.models.resnet_deeplab import DeepLabV2, head_param_mask
     from diga_tpu.models.translator import ImgDecoder, ImgEncoder
-    from diga_tpu.ops import mixing
     from diga_tpu.ops.prototypes import Centroids
     from diga_tpu.train.optim import sgd_grouped
     from diga_tpu.train.schedules import poly_schedule
     from diga_tpu.train.state import create_seg_state
-    from diga_tpu.train.steps import StepConfig, build_selftrain_step
     from diga_tpu_torch.models.convert import state_dict_from_jax, translator_state_dict_from_jax
 
     def np_tree(tree):
@@ -131,9 +147,6 @@ def main(out_dir: str, variant: str = "gta") -> None:
         batch_stats=jax.tree_util.tree_map(np.abs, noisy(state.batch_stats, 0.01)),
         teacher_batch_stats=jax.tree_util.tree_map(np.abs, noisy(state.batch_stats, 0.01)),
         teacher_params=noisy(state.params, 0.01))
-    cfg = StepConfig(num_classes=K, crop_hw=CROP, beta=0.0, lambda_distil=LAMBDA_DISTIL,
-                     **step_opts)
-    step = jax.jit(build_selftrain_step(model, translator_apply, opt, cfg))
 
     def snapshot(st) -> dict:
         return {**_flat("student", state_dict_from_jax(np_tree(st.params),
@@ -144,17 +157,40 @@ def main(out_dir: str, variant: str = "gta") -> None:
                 "centroids|counts": np.asarray(st.centroids.counts)}
 
     sds = translator_state_dict_from_jax({"enc_s": np_tree(enc_p), "dec_s2t": np_tree(dec_p)})
-    np.savez(f"{out_dir}/init.npz", **snapshot(state), **_flat("enc_s", sds["enc_s"]),
-             **_flat("dec_s2t", sds["dec_s2t"]))
+    init = {**snapshot(state), **_flat("enc_s", sds["enc_s"]), **_flat("dec_s2t", sds["dec_s2t"])}
+    return model, opt, translator_apply, state, snapshot, init
+
+
+def selections(rng, s_lbl: np.ndarray, num_classes: int) -> dict:
+    """The CrDoMix and DACS selections the step draws from ``rng`` (its key
+    split, ``steps.py:282-283``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from diga_tpu.ops import mixing
+
+    _, _, _, k_mix1, k_mix2, _, _, _, _ = jax.random.split(rng, 9)
+    lbl = jnp.asarray(s_lbl)
+    return {"selection|crdomix": np.asarray(mixing.sample_half_classes(lbl, k_mix1, num_classes)),
+            "selection|dacs": np.asarray(mixing.sample_half_classes(lbl, k_mix2, num_classes))}
+
+
+def main(out_dir: str, variant: str = "gta") -> None:
+    import jax
+    import jax.numpy as jnp
+
+    from diga_tpu_torch.models.convert import state_dict_from_jax
+
+    K = VARIANTS[variant]["num_classes"]
+    state, step, snapshot, init = setup(variant)
+    np.savez(f"{out_dir}/init.npz", **init)
     for i in range(N_STEPS):
         batch = make_batch(i, K)
-        _, _, _, k_mix1, k_mix2, _, _, _, _ = jax.random.split(state.rng, 9)
-        s_lbl = jnp.asarray(batch["s_lbl"])
-        selections = {"selection|crdomix": np.asarray(mixing.sample_half_classes(s_lbl, k_mix1, K)),
-                      "selection|dacs": np.asarray(mixing.sample_half_classes(s_lbl, k_mix2, K))}
+        drawn = selections(state.rng, batch["s_lbl"], K)
         state, metrics = step(state, {kk: jnp.asarray(v) for kk, v in batch.items()})
+        np_tree = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
         mu = state_dict_from_jax(np_tree(state.opt_state["mu"]), np_tree(state.batch_stats), LAYERS)
-        np.savez(f"{out_dir}/step{i}.npz", **snapshot(state), **selections, **_flat("mu", mu),
+        np.savez(f"{out_dir}/step{i}.npz", **snapshot(state), **drawn, **_flat("mu", mu),
                  **{f"metric|{kk}": np.asarray(v) for kk, v in metrics.items()})
         print(f"step {i}: " + " ".join(f"{kk}={float(v):.6f}" for kk, v in metrics.items()),
               flush=True)

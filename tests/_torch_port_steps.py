@@ -18,6 +18,7 @@ Also the JAX package's photometric draws from a key (``jax_diga_draws``,
 """
 
 import copy
+import functools
 
 import numpy as np
 import pytest
@@ -98,6 +99,18 @@ class _JittedInit:
 
 
 def _jax_setup(stage, K, opts, lr_warmup):
+    model, opt, translator_apply, state = _jax_init(K, lr_warmup)
+    cfg = JaxStepConfig(num_classes=K, crop_hw=CROP, tgt_stats_forward=True,
+                        with_sharpness=stage != "dg", **opts)
+    if stage == "dg":
+        return state, jax.jit(jax_build_dg_step(model, opt, cfg))
+    return state, jax.jit(jax_build_warmup_step(model, translator_apply, opt, cfg))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_init(K, lr_warmup):
+    """(model, optimizer, translator_apply, initial state): one per class
+    count and LR warm-up, shared by the stages (a JAX state is immutable)."""
     model = JaxDeepLabV2(num_classes=K, layers=LAYERS, droprate=0.0, s2b=False)
     k = jax.random.PRNGKey(3)
     x = jnp.zeros((1, *CROP, 3), jnp.float32)
@@ -128,11 +141,7 @@ def _jax_setup(stage, K, opts, lr_warmup):
         batch_stats=jax.tree_util.tree_map(np.abs, noisy(state.batch_stats, 0.01)),
         teacher_batch_stats=jax.tree_util.tree_map(np.abs, noisy(state.batch_stats, 0.01)),
         teacher_params=noisy(state.params, 0.01))
-    cfg = JaxStepConfig(num_classes=K, crop_hw=CROP, tgt_stats_forward=True,
-                        with_sharpness=stage != "dg", **opts)
-    if stage == "dg":
-        return state, jax.jit(jax_build_dg_step(model, opt, cfg))
-    return state, jax.jit(jax_build_warmup_step(model, translator_apply, opt, cfg))
+    return model, opt, translator_apply, state
 
 
 def _port_setup(stage, jstate, K, opts, lr_warmup):

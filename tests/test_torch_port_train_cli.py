@@ -8,8 +8,8 @@ port's eval model with ``strict=True``.  The weight directories are the JAX
 trainer's (``diga_tpu/cli/train_seg.py:95-117``): ``<work_dir>/weights`` and
 the full-state ``<work_dir>/ckpt_best`` only on a new best mIoU, the last
 step's full state in ``<work_dir>/ckpt_final``.  Without ``--device cpu``
-it raises here (the default is the card), and the flags whose slices have
-not landed are refused.
+it raises here (the default is the card), and the flags it cannot honour
+are refused.
 """
 
 import copy
@@ -103,9 +103,14 @@ def test_defaults_to_the_card(argv):
 
 
 @pytest.mark.parametrize("flags", [["--pretrained_backbone", "auto"],
-                                   ["--n_devices", "2"], ["--multihost"],
+                                   ["--n_devices", "0"], ["--multihost"],
                                    ["--preset", "gta2city_selftrain"]])
-def test_unported_flags_are_refused(argv, flags):
+def test_unported_flags_are_refused(argv, flags, monkeypatch):
+    """Refused: the download, a world of no rank, ``--multihost`` outside
+    torchrun's environment, another stage's preset.  ``--n_devices 2``
+    trains (tests/test_torch_port_parallel_cli.py)."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     with pytest.raises(SystemExit):
         cli.main([*argv, "--device", "cpu", *flags])
 
