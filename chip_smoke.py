@@ -15,7 +15,8 @@ translator stage (``train_domain_translator``), a resumed warm-up, and the
 semi-supervised Cityscapes chain on HRNet-W48+OCR; ``profile_step`` (with
 ``--components``), the loop's device prefetch, the fused self-training step
 (``--extra fuse_forwards=true``), ``parity_check`` against the replay
-oracle, the loaders' C host ops, ``make_viz`` and three soaks.
+oracle, the loaders' C host ops, ``make_viz``, three soaks, and the
+height-sharded eval (``evaluate_val --shard spatial``).
 Phases, any failure of which exits non-zero:
 
   1. device: require CUDA; print the card's name and power limit
@@ -29,7 +30,9 @@ Phases, any failure of which exits non-zero:
      256), (3, 65, 113, 256), (8, 65, 113, 256) and the fused
      self-training teacher's (9, 65, 113, 256), calc_centroids --source's
      (1, 91, 161, 256), parity_check's activation input's (1, 17, 29,
-     256)) and at the edges of
+     256), and every shard's rows of the eval's two sites in the
+     height-sharded eval over 2, 4 and 8 shards, (1, 8|9|16|17|32|33, 129,
+     256) and (1, 16|17|32|33|64|65, 257, 256)) and at the edges of
      B2a's design: ragged, C=64, C=32, one row, fewer rows than one tile, a
      whole number of tiles, batch 6 with a ragged H·W, a base pointer
      16-byte but not 128-byte aligned; f32 channel sums at 1e-5 relative;
@@ -166,6 +169,27 @@ Phases, any failure of which exits non-zero:
      at tiny shapes).  With 2 cards or more, the tiny f32 warm-up over 2
      ranks against 1 on the same global batch within
      ``PARALLEL_WORLD_RTOL``; with one card a line says it did not run
+  8f. the height-sharded two-scale eval (``--shard spatial``) at full
+     width on phase 5's first val image: R101 over 2, 4 and 8 local shards
+     (``parallel/spatial.py``'s ``LocalShards``: one thread a shard on this
+     card, since NCCL puts no two ranks on one card) in f32 without TF32
+     from cuDNN's heuristics, predictions against the unsharded eval's on
+     at most ``SPATIAL_GATE`` of the pixels; then in bf16 (the path's
+     dtype, cuDNN tuned) over the same shards, at most ``SPATIAL_GATE`` of
+     the pixels whose unsharded top two logits differ by more than
+     ``SPATIAL_MARGIN_ULPS`` bf16 ulps, which must be at least
+     ``SPATIAL_DECIDED_MIN`` of them (the disagreement over every pixel,
+     the exact ties and the disagreement by margin printed); in every run
+     B2a and B2b at exactly the shards' rows of the eval's two sites,
+     every shard's confusion equal, the scored pixels equal, the logits'
+     largest difference and the mIoU difference printed; ms/img of the
+     halo path in an NCCL world of one (the group transport) and over 2
+     and 4 local shards against unsharded, in turns; HRNet-W48+OCR over 2
+     shards in f32, gated the same way; ``evaluate_val --n_devices 1
+     --shard spatial`` (2 images, an NCCL world of one): B2 at the eval's
+     two sites, its scored pixels the labels' valid pixels, its dumped
+     predictions against this phase's unsharded bf16 eval of the same
+     images under the bf16 gate, its mIoU beside phase 5's printed
   9. kernel timing: per-site GroupNorm and distillation device times
      (CUDA events around back-to-back calls queued behind a sleep kernel)
      against their byte bounds, plain versions and nearest library calls
@@ -187,6 +211,9 @@ reductions); the warm-up from the translator's weights (1 step) 1, 1, 6,
 6; the resume's two warm-ups (2 steps, then 1) 2, 2, 12, 12 and 1, 1, 6,
 6; train_warm_up --n_devices 1 (3 steps) 3, 3, 18, 18;
 dryrun_multichip(1) (one card: in this process) at least one of each;
+the height-sharded R101 eval of one image over n shards (f32 and bf16)
+0, 0, 12n, 12n (6 sites x 2 scales x n shards), HRNet-W48+OCR's 0, 0, 0,
+0, and evaluate_val --n_devices 1 --shard spatial (2 images) 0, 0, 24, 24;
 the semiseg train_warm_up (3 steps) 6, 6, 0, 0 (the logits and the
 OCR aux logits), train_self_training (3 steps) 3, 3, 0, 0, and its
 pseudolabel_generator, calc_centroids and evaluate_val 0, 0, 0, 0
@@ -257,8 +284,10 @@ from diga_tpu_torch.ops import photometric as P
 from diga_tpu_torch.ops.prototypes import Centroids
 from diga_tpu_torch.ops.losses import distillation_loss as plain_distillation_loss
 from diga_tpu_torch.ops.metrics import confusion_update
-from diga_tpu_torch.parallel import dist
+from diga_tpu_torch.eval.evaluator import TwoScaleEvaluator
+from diga_tpu_torch.parallel import dist, spatial, spatial_ops
 from diga_tpu_torch.parallel.dryrun import dryrun_multichip, warmup_world
+from diga_tpu_torch.parallel.spatial_ops import convert_spatial
 from diga_tpu_torch.parallel.sync_bn import SyncBatchNorm2d
 from diga_tpu_torch.train.build import (build_eval, build_experiment, make_schedule,
                                         make_step_config, wants_target)
@@ -289,7 +318,21 @@ GN_TRAIN_SITES = [
 ]
 GN_SOURCE_SITE = (1, 91, 161, 256)  # calc_centroids --source on the 720x1280 source stream
 GN_PARITY_SITE = (1, 17, 29, 256)  # parity_check's activation input, 129x225 at output stride 8
-GN_PATH_SITES = GN_SITES + GN_TRAIN_SITES + [GN_SOURCE_SITE, GN_PARITY_SITE]
+SPATIAL_SHARDS = (2, 4, 8)  # phase 8f: R101's height split over this many local shards
+
+
+def gn_slab_sites(n: int) -> set:
+    """The GroupNorm sites of the height-sharded eval over ``n`` shards:
+    each shard's rows of the eval's two sites (``parallel/spatial.py``'s
+    balanced split; a shard with no rows launches nothing)."""
+    return {(b, hi - lo, w, c) for b, h, w, c in GN_SITES
+            for lo, hi in (spatial.rows(h, n, r) for r in range(n)) if hi > lo}
+
+
+GN_SPATIAL_SITES = sorted(set().union(*(gn_slab_sites(n) for n in SPATIAL_SHARDS)))
+# phase 9 times the one-device sites; phase 3 checks these and the slabs
+GN_TIMED_SITES = GN_SITES + GN_TRAIN_SITES + [GN_SOURCE_SITE, GN_PARITY_SITE]
+GN_PATH_SITES = GN_TIMED_SITES + GN_SPATIAL_SITES
 GN_CHECKS = [  # (shape, base pointer offset in bytes)
     *((s, 0) for s in GN_PATH_SITES),
     ((2, 17, 29, 256), 0),  # ragged
@@ -351,6 +394,18 @@ TRAIN_PATHS = ("train_warm_up", "train_self_training", "train_dg", "synthia trai
 # synced BN's f32 arithmetic against cuDNN's BatchNorm, and cuDNN's own
 # run-to-run spread); the 2-rank tiny warm-up against the 1-rank one, f32
 PARALLEL_LOSS_RTOL = 2e-2
+SPATIAL_HRNET_SHARDS = 2
+SPATIAL_TIMED_SHARDS = (2, 4)  # bf16 ms/img, beside the world of one NCCL rank
+SPATIAL_GATE = 1e-3  # pixel disagreement with the unsharded eval (parity_check's gate)
+# bf16: the gate holds on the pixels whose unsharded top two logits differ by
+# more than this many bf16 ulps of the top one (cuDNN's algorithms for the slab
+# shapes round differently; ties and near-ties may go either way), and those
+# pixels must be at least SPATIAL_DECIDED_MIN of the image (with the seeded
+# R101 on phase 5's images, over 4 ulps: 0.881-0.882 of the pixels, 9.2e-6 to
+# 3.3e-5 of them disagreeing at n = 1, 2, 4, 8; over 2 ulps 2.5e-4 to 9.0e-4)
+SPATIAL_MARGIN_ULPS = 4
+SPATIAL_DECIDED_MIN = 0.8
+SPATIAL_HRNET_PATH = f"spatial eval HRNet-W48+OCR f32 n={SPATIAL_HRNET_SHARDS}"
 PARALLEL_WORLD_RTOL = 1e-4
 PREFETCH_BATCHES = 20  # prefetched batches held equal to their host copies under real steps
 PROFILE_STEPS = 2  # profile_step's traced (and untraced timed) steps, after its 2 warm-up steps
@@ -651,7 +706,7 @@ def phase_main_path(work: str) -> tuple[dict, dict]:
     require(0.0 <= scores["mean_iou"] <= 1.0, f"mean_iou out of range: {scores}")
     print("main path scores: " + json.dumps({k: float(v) for k, v in scores.items()}))
     return counts, {"root": root, "val_img": val_img, "val_lbl": val_lbl,
-                    "wdir": wdir, "dump": dump}
+                    "wdir": wdir, "dump": dump, "scores": scores}
 
 
 def check_outputs(eval_apply, paths: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -772,7 +827,7 @@ def phase_gn_timing(card: str) -> dict:
     dtype = torch.bfloat16
     per_kernel = {}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    for shape in GN_PATH_SITES:
+    for shape in GN_TIMED_SITES:
         b, h, w, c = shape
         numel = b * h * w * c
         xb = numel * 2
@@ -1315,6 +1370,319 @@ def phase_parallel(work: str, data_paths: dict, card: str, plain: dict) -> dict:
     else:
         print("one card: the 2-rank run against the 1-rank run on the global batch needs 2 "
               "cards and was not run (the CPU tests hold it over gloo)", flush=True)
+    return counts
+
+
+def spatial_update(eval_apply, img: np.ndarray, lbl: np.ndarray, shard) -> tuple:
+    """One image through the height-sharded evaluator on ``shard`` (every
+    shard is given the whole image): (its confusion, its prediction rows)."""
+    ev = TwoScaleEvaluator(eval_apply, 19, OUT_HW, DS_HW, DEVICE, shard="spatial",
+                           spatial=shard)
+    pred = ev.update(img, lbl)
+    return ev.score.confusion, pred
+
+
+def spatial_logits(eval_apply, img: np.ndarray, shard) -> torch.Tensor:
+    with torch.inference_mode(), shard.active():
+        x = shard.slice_rows(torch.from_numpy(img)).to(DEVICE)
+        return two_scale_logits(eval_apply, x, OUT_HW, DS_HW)
+
+
+def spatial_ms_per_img(eval_apply, img: np.ndarray, lbl: np.ndarray, shards, iters: int) -> float:
+    """ms/img of the evaluator on one host image: height-sharded over the
+    ``shards`` (a ``LocalShards``), over the process group's ranks
+    (``"group"``), or unsharded (None); host clock to a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        if shards == "group":
+            spatial_update(eval_apply, img, lbl, spatial.group_shard())
+        elif shards is None:
+            TwoScaleEvaluator(eval_apply, 19, OUT_HW, DS_HW, DEVICE).update(img, lbl)
+        else:
+            shards.run(lambda s: spatial_update(eval_apply, img, lbl, s))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def margin_ulps(logits: torch.Tensor) -> torch.Tensor:
+    """Each pixel's top-two logit margin in bf16 ulps of its top logit."""
+    top2 = logits.float().topk(2, dim=-1).values
+    _, e = torch.frexp(top2[..., 0])  # |top| = m·2^e, m in [0.5, 1): its bf16 ulp is 2^(e-8)
+    return (top2[..., 0] - top2[..., 1]) * torch.exp2(8.0 - e.float())
+
+
+def decided_disagreement(pred: torch.Tensor, ref_pred: torch.Tensor, margins: torch.Tensor,
+                         dtype: torch.dtype) -> tuple[float, float, str]:
+    """(the gated disagreement, the share of pixels it is over, a line of
+    the disagreement by margin): over every pixel in f32, over the pixels
+    whose unsharded margin exceeds ``SPATIAL_MARGIN_ULPS`` in bf16."""
+    diff = pred != ref_pred
+    by_margin = []
+    for u in (0, 1, 2, 4, 8):
+        over = margins > u
+        by_margin.append(f">{u}: {float((diff & over).sum()) / max(int(over.sum()), 1):.3e} "
+                         f"of {float(over.float().mean()):.4f}")
+    line = "disagreement by unsharded margin in bf16 ulps (of the share): " + ", ".join(by_margin)
+    if dtype == torch.float32:
+        return float(diff.float().mean()), 1.0, line
+    decided = margins > SPATIAL_MARGIN_ULPS
+    return (float((diff & decided).sum()) / max(int(decided.sum()), 1),
+            float(decided.float().mean()), line)
+
+
+def require_decided(name: str, rate: float, share: float) -> None:
+    require(rate <= SPATIAL_GATE, f"{name}: pixel disagreement {rate} > {SPATIAL_GATE}")
+    require(share >= SPATIAL_DECIDED_MIN,
+            f"{name}: the gate's pixels are {share} of the image, under {SPATIAL_DECIDED_MIN}")
+
+
+@contextlib.contextmanager
+def recorded_gn_shapes():
+    """The NHWC shapes at which the sharded GroupNorm calls B2a and B2b."""
+    seen = {"stats": [], "apply": []}
+    stats, apply = spatial_ops.group_norm_stats, spatial_ops.group_norm_apply
+
+    def rec_stats(x, *args):
+        seen["stats"].append(tuple(x.shape))
+        return stats(x, *args)
+
+    def rec_apply(x, *args):
+        seen["apply"].append(tuple(x.shape))
+        return apply(x, *args)
+
+    spatial_ops.group_norm_stats, spatial_ops.group_norm_apply = rec_stats, rec_apply
+    try:
+        yield seen
+    finally:
+        spatial_ops.group_norm_stats, spatial_ops.group_norm_apply = stats, apply
+
+
+def spatial_against(name: str, eval_apply, img: np.ndarray, lbl: np.ndarray,
+                    shards: spatial.LocalShards, ref: dict, gn: int) -> dict:
+    """The height-sharded eval of one image over the local ``shards`` against
+    the unsharded ``ref``: the launch counts (B2 ``gn`` each) with B2a and
+    B2b at exactly the shards' rows of the eval's sites
+    (``gn_slab_sites``), every shard's confusion equal, the scored pixels
+    equal; the pixel disagreement within ``SPATIAL_GATE`` (``decided_
+    disagreement``), printed beside the share of pixels whose unsharded top
+    two logits tie exactly and by margin; the logits' largest difference
+    and the mIoU difference printed."""
+    reset_launches()
+    t0 = time.perf_counter()
+    with recorded_gn_shapes() as seen:
+        out = shards.run(lambda s: spatial_update(eval_apply, img, lbl, s))
+        torch.cuda.synchronize()
+    counts = launches()
+    secs = time.perf_counter() - t0
+    require(counts == kernel_counts(0, gn), f"{name}: launches {counts}, expected B2 {gn}")
+    want_sites = gn_slab_sites(shards.n) if gn else set()
+    for kernel, shapes in seen.items():
+        require(set(shapes) == want_sites, f"{name}: B2 {kernel} at {sorted(set(shapes))}, "
+                                           f"expected {sorted(want_sites)}")
+    require(all(torch.equal(o[0], out[0][0]) for o in out), f"{name}: shards' confusions differ")
+    pred = torch.cat([o[1] for o in out], 1)
+    require(pred.shape == ref["pred"].shape, f"{name}: prediction {tuple(pred.shape)}")
+    disagree = float((pred != ref["pred"]).float().mean())
+    logits = torch.cat(shards.run(lambda s: spatial_logits(eval_apply, img, s)), 1)
+    require(bool(torch.isfinite(logits).all()), f"{name}: non-finite logits")
+    d_logit = float((logits.float() - ref["logits"].float()).abs().max())
+    rate, share, by_margin = decided_disagreement(pred, ref["pred"], ref["margins"],
+                                                  ref["logits"].dtype)
+    miou = confusion_miou(out[0][0])
+    print(f"{name}: {secs:.1f} s (the first run on these shards includes cuDNN tuning "
+          f"their slab shapes); launches={counts}; B2 at {sorted(want_sites)}; "
+          f"pixel disagreement with the unsharded eval {disagree:.3e} over every pixel, "
+          f"{rate:.3e} over the gate's {share:.4f} of them (gate {SPATIAL_GATE}); the unsharded "
+          f"top two logits tie exactly on {ref['ties']:.3e}; {by_margin}; max|logit diff| "
+          f"{d_logit:.3e} of max|logit| {float(ref['logits'].float().abs().max()):.3e}; mIoU "
+          f"{miou:.6f} against {ref['miou']:.6f} (diff {miou - ref['miou']:+.3e}); scored pixels "
+          f"{int(out[0][0].sum())} of {int(ref['conf'].sum())}", flush=True)
+    require(int(out[0][0].sum()) == int(ref["conf"].sum()), f"{name}: scored pixels differ")
+    require_decided(name, rate, share)
+    return counts
+
+
+def confusion_miou(conf: torch.Tensor) -> float:
+    from diga_tpu_torch.ops.metrics import scores_from_confusion
+
+    return float(scores_from_confusion(conf.cpu().numpy())[0]["mean_iou"])
+
+
+def unsharded_reference(eval_apply, img: np.ndarray, lbl: np.ndarray) -> dict:
+    ev = TwoScaleEvaluator(eval_apply, 19, OUT_HW, DS_HW, DEVICE)
+    pred = ev.update(img, lbl)
+    with torch.inference_mode():
+        logits = two_scale_logits(eval_apply, torch.from_numpy(img).to(DEVICE), OUT_HW, DS_HW)
+    margins = margin_ulps(logits)
+    return {"pred": pred, "logits": logits, "conf": ev.score.confusion,
+            "miou": confusion_miou(ev.score.confusion), "margins": margins,
+            "ties": float((margins == 0).float().mean())}
+
+
+@contextlib.contextmanager
+def f32_untuned():
+    """f32 convs and matmuls without TF32 (as phase 4), from cuDNN's
+    heuristics: tuning every slab shape in f32 on every shard's thread (the
+    tuned plans are kept per thread) costs about 30 s a shard count."""
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.benchmark) = prev
+
+
+def spatial_model_checks(label: str, preset: str, wdir: str, img: np.ndarray, lbl: np.ndarray,
+                         pools: dict, bf16_shards: tuple, gn_sites: int) -> tuple[dict, tuple]:
+    """``preset``'s eval model from ``wdir`` against its unsharded eval over
+    local shards (``pools``: {n: LocalShards}): in f32 without TF32 over
+    every pool (the disagreement gated over every pixel), then in bf16, the
+    path's dtype, over ``bf16_shards`` (gated over the decided pixels).
+    Returns the launch counts by run and the bf16 (eval_apply, model),
+    converted (None where ``bf16_shards`` is empty)."""
+    counts = {}
+    cfg = get_preset(preset)
+    with f32_untuned():
+        apply32, model32 = build_eval(dataclasses.replace(
+            cfg, train=dataclasses.replace(cfg.train, compute_dtype="float32")), wdir, DEVICE)
+        torch.backends.cudnn.benchmark = False  # build_eval turns it on
+        ref = unsharded_reference(apply32, img, lbl)
+        convert_spatial(model32)
+        for n, shards in pools.items():
+            name = f"spatial eval {label} f32 n={n}"
+            counts[name] = spatial_against(f"{name} (no TF32)", apply32, img, lbl, shards, ref,
+                                           gn_sites * n)
+    del apply32, model32, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not bf16_shards:
+        return counts, None
+    eval_apply, model = build_eval(cfg, wdir, DEVICE)
+    ref = unsharded_reference(eval_apply, img, lbl)
+    convert_spatial(model)
+    for n in bf16_shards:
+        name = f"spatial eval {label} bf16 n={n}"
+        counts[name] = spatial_against(name, eval_apply, img, lbl, pools[n], ref, gn_sites * n)
+    return counts, (eval_apply, model)
+
+
+def phase_spatial(work: str, paths: dict, card: str) -> dict:
+    """8f: the height-sharded two-scale eval (``--shard spatial``) at full
+    width.  R101 from phase 5's student.pth on its first val image over
+    ``SPATIAL_SHARDS`` local shards (one thread each on this card: NCCL puts
+    no two ranks on one card) and HRNet-W48+OCR over
+    ``SPATIAL_HRNET_SHARDS``, each against the unsharded eval of the same
+    call (``spatial_model_checks``); the ms/img of the halo path at n = 1
+    (an NCCL world of one), 2 and 4 against unsharded, bf16 (one card runs
+    the shards one after another: the halo path's overhead, not a latency
+    gain); then ``evaluate_val --n_devices 1 --shard spatial`` against this
+    phase's unsharded bf16 eval of its images."""
+    with contextlib.ExitStack() as stack:
+        # threads that outlive a run keep the cuDNN plans tuned for their shapes
+        pools = {n: stack.enter_context(spatial.LocalShards(n, DEVICE)) for n in SPATIAL_SHARDS}
+        return spatial_phase_body(work, paths, card, pools)
+
+
+def spatial_phase_body(work: str, paths: dict, card: str, pools: dict) -> dict:
+    ds = cityscapes_dataset(paths["root"], paths["val_img"], paths["val_lbl"], resize_hw=OUT_HW)
+    sample = ds[0]
+    img, lbl = sample["image"][None], sample["label"][None].astype(np.int32)
+    counts, (eval_apply, model) = spatial_model_checks(
+        "R101", PRESET, paths["wdir"], img, lbl, pools, SPATIAL_SHARDS, 2 * 6)
+
+    times = {"unsharded": [], "group n=1": [], **{f"local n={n}": [] for n in SPATIAL_TIMED_SHARDS}}
+
+    def group_times() -> list:
+        spatial_ms_per_img(eval_apply, img, lbl, "group", 1)  # the world's first call, cuDNN
+        return [spatial_ms_per_img(eval_apply, img, lbl, "group", 3) for _ in range(2)]
+
+    spatial_ms_per_img(eval_apply, img, lbl, None, 1)
+    for _ in range(2):  # in turns; every shape was tuned by the runs above
+        times["unsharded"].append(spatial_ms_per_img(eval_apply, img, lbl, None, 3))
+        for n in SPATIAL_TIMED_SHARDS:
+            times[f"local n={n}"].append(spatial_ms_per_img(eval_apply, img, lbl, pools[n], 3))
+    times["group n=1"] = dist.launch(group_times, 1, DEVICE.type)
+    mean = {k: float(np.mean(v)) for k, v in times.items()}
+    print(f"spatial eval R101 bf16 {OUT_HW[0]}x{OUT_HW[1]}+{DS_HW[0]}x{DS_HW[1]} ms/img: "
+          + ", ".join(f"{k} {mean[k]:.2f} {times[k]}" for k in times)
+          + f" (one card runs the shards in turn: the halo path's overhead) | card={card}",
+          flush=True)
+    print(json.dumps({"metric": "cityscapes_spatial_eval_ms_per_img", "value": mean,
+                      "card": card}), flush=True)
+    # the CLI's images, unsharded in bf16: its dumps are held against these below
+    cli_refs = {}
+    for i in range(N_IMAGES):
+        with torch.inference_mode():
+            lg = two_scale_logits(eval_apply, torch.from_numpy(ds[i]["image"][None]).to(DEVICE),
+                                  OUT_HW, DS_HW)
+        base = os.path.splitext(os.path.basename(ds[i]["name"]))[0]
+        cli_refs[base + ".png"] = (lg.argmax(-1)[0].cpu(), margin_ulps(lg)[0].cpu())
+        del lg
+    del eval_apply, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # HRNet-W48+OCR (no GroupNorm: no kernel on this path), gated in f32
+    hdir = os.path.join(work, "spatial_hrnet")
+    export_role_keyed(hdir, {"student": seeded_state_dict(HRNetOCR(19), SEED + 10)})
+    hcounts, _ = spatial_model_checks("HRNet-W48+OCR", SEMISEG_SELFTRAIN_PRESET, hdir, img, lbl,
+                                      {SPATIAL_HRNET_SHARDS: pools[SPATIAL_HRNET_SHARDS]}, (), 0)
+    counts.update(hcounts)  # SPATIAL_HRNET_PATH
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CLI in a world of one NCCL rank: the group transport
+    dump = os.path.join(work, "preds_spatial")
+    seen = {}
+
+    class Recorded(TwoScaleEvaluator):
+        def update(self, image, label):
+            pred = super().update(image, label)
+            seen.update(backend=dist.backend(), world=dist.world(),
+                        pixels=int(self.score.confusion.sum()))
+            return pred
+
+    evaluate_val.TwoScaleEvaluator = Recorded
+    try:
+        with recorded_gn_shapes() as gn_seen:
+            results, counts["spatial evaluate_val n_devices=1"] = run_path(
+                "evaluate_val --n_devices 1 --shard spatial", evaluate_val.main,
+                ["--preset", PRESET, "--weight_dir", paths["wdir"], "--eval_limit",
+                 str(N_IMAGES), "--target_root", paths["root"], "--val_img_list",
+                 paths["val_img"], "--val_lbl_list", paths["val_lbl"], "--dump_preds", dump,
+                 "--n_devices", "1", "--shard", "spatial"], kernel_counts(0, N_IMAGES * 2 * 6))
+    finally:
+        evaluate_val.TwoScaleEvaluator = TwoScaleEvaluator
+    for kernel, shapes in gn_seen.items():
+        require(set(shapes) == gn_slab_sites(1),
+                f"spatial CLI: B2 {kernel} at {sorted(set(shapes))}, expected {GN_SITES}")
+    want_pixels = sum(int(((ds[i]["label"] >= 0) & (ds[i]["label"] < 19)).sum())
+                      for i in range(N_IMAGES))
+    names = sorted(os.listdir(paths["dump"]))
+    require(sorted(os.listdir(dump)) == names == sorted(cli_refs),
+            f"spatial dumps {os.listdir(dump)} vs {names} and {sorted(cli_refs)}")
+    preds = torch.stack([torch.from_numpy(np.array(Image.open(os.path.join(dump, f)))).long()
+                         for f in names])
+    rate, share, by_margin = decided_disagreement(
+        preds, torch.stack([cli_refs[f][0] for f in names]),
+        torch.stack([cli_refs[f][1] for f in names]), torch.bfloat16)
+    miou, miou_ref = results["cityscapes"]["mean_iou"], paths["scores"]["mean_iou"]
+    print(f"evaluate_val --n_devices 1 --shard spatial: backend {seen.get('backend')}, world "
+          f"{seen.get('world')}, {seen.get('pixels')} scored pixels (the labels' valid "
+          f"{want_pixels}); B2 at {GN_SITES}; dumped predictions against this phase's unsharded "
+          f"bf16 eval of the same images: {rate:.3e} over the gate's {share:.4f} of the pixels "
+          f"(gate {SPATIAL_GATE}); {by_margin}; mIoU {miou:.6f}, the no-flag run's of phase 5 "
+          f"{miou_ref:.6f} (diff {miou - miou_ref:+.3e}, printed)", flush=True)
+    require(seen.get("backend") == dist.backend_for(DEVICE.type) and seen.get("world") == 1,
+            f"the spatial CLI's world was {seen}")
+    require(seen.get("pixels") == want_pixels, f"scored pixels {seen.get('pixels')}, "
+                                                f"expected {want_pixels}")
+    require_decided("spatial CLI dumps", rate, share)
+    require(not dist.active(), "a process group outlived the CLI")
     return counts
 
 
@@ -2489,6 +2857,11 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         lap("8e data-parallel")
+        # 8f. the height-sharded eval: local shards on this card, the CLI's world of one
+        counts.update(phase_spatial(work, paths, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("8f height-sharded eval")
     gc.collect()
     torch.cuda.empty_cache()
     # 9. kernel timing and the record lines
@@ -2497,7 +2870,7 @@ def main(argv=None) -> int:
     for path, c in counts.items():
         # no TPU kernel on the translator stage, nor on HRNet+OCR's eval
         # paths (run_path holds them at 0)
-        if path in TRANSLATOR_PATHS + SEMISEG_EVAL_PATHS:
+        if path in TRANSLATOR_PATHS + SEMISEG_EVAL_PATHS + (SPATIAL_HRNET_PATH,):
             continue
         used = [k for k, (_, src, _) in TPU_KERNELS.items()
                 if (src.endswith("distill.cu") and path in TRAIN_PATHS + SEMISEG_TRAIN_PATHS)

@@ -15,6 +15,14 @@ Batch-sharded over a process group (``diga_tpu/eval/evaluator.py:55-113``):
 eval batch of ``world`` x ``batch``, the tail padded as one process pads
 it, and ``RunningScore.get_scores`` sums the int64 confusion matrix over
 the ranks, so every rank gets the one-process mIoU exactly.
+
+Height-sharded (``shard="spatial"``, ``diga_tpu/eval/evaluator.py:55-66``;
+the row layout of ``parallel/spatial.py``): every shard is given the whole
+image and label and keeps its rows of them (the height must divide by the
+shards), the model's sharded modules and the three resizes of
+``two_scale_logits`` compute its rows of the logits, argmax is local, and
+each image's confusion counts over the shard's label rows are summed over
+the shards (int64), so every shard holds the one-process matrix.
 """
 
 from __future__ import annotations
@@ -24,8 +32,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..ops.metrics import RunningScore
+from ..ops.metrics import RunningScore, confusion_update, scores_from_confusion
 from ..ops.resize import resize_bilinear
+from ..parallel import spatial as spatial_mod
+from ..parallel import spatial_ops
 
 
 def iter_val(ds, limit=None, batch=1, rank: int = 0, world: int = 1):
@@ -54,39 +64,85 @@ def iter_val(ds, limit=None, batch=1, rank: int = 0, world: int = 1):
                "names": [s["name"] for s in samples[:k]], "valid": k}
 
 
+def _resize(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """``resize_bilinear`` of NHWC ``x``; in a height-sharded eval ``x`` is
+    this shard's rows, ``out_hw`` the whole size, and the result its rows."""
+    shard = spatial_mod.current()
+    if shard is None:
+        return resize_bilinear(x, out_hw)
+    return spatial_ops.resize_rows(shard, x.permute(0, 3, 1, 2), out_hw).permute(0, 2, 3, 1)
+
+
 def two_scale_logits(apply_fn: Callable, image: torch.Tensor,
                      out_hw: tuple[int, int], ds_hw: tuple[int, int]) -> torch.Tensor:
     """max(upsample(f(x)), upsample(f(downscale(x)))) at out_hw (NHWC)."""
-    up_full = resize_bilinear(apply_fn(image), out_hw)
-    up_ds = resize_bilinear(apply_fn(resize_bilinear(image, ds_hw)), out_hw)
+    up_full = _resize(apply_fn(image), out_hw)
+    up_ds = _resize(apply_fn(_resize(image, ds_hw)), out_hw)
     return torch.maximum(up_full, up_ds)
+
+
+class _ShardScore(RunningScore):
+    """The height-sharded eval's scorer: each image's counts are summed over
+    the shards as it is scored, so every shard holds the whole matrix and
+    scores it as it is."""
+
+    def get_scores(self) -> tuple[dict, dict]:
+        return scores_from_confusion(self.confusion.cpu().numpy())
 
 
 class TwoScaleEvaluator:
     """Streaming two-scale evaluator.
 
     ``apply_fn(image) -> logits`` is the inference-mode model, NHWC image
-    in, NHWK logits out at any stride.
+    in, NHWK logits out at any stride.  ``shard``: ``'batch'`` (each
+    process scores whole images) or ``'spatial'`` (the height split over
+    the shards of ``spatial``, by default the process group's ranks; the
+    model's convs and pools converted by ``spatial_ops.convert_spatial``).
     """
 
     def __init__(self, apply_fn: Callable, num_classes: int = 19,
                  out_hw: tuple[int, int] = (1024, 2048),
                  ds_hw: tuple[int, int] = (512, 1024),
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", shard: str = "batch",
+                 spatial: spatial_mod.Shard | None = None):
+        if shard not in ("batch", "spatial"):
+            raise ValueError(f"shard must be 'batch' or 'spatial', got {shard!r}")
         self.apply_fn = apply_fn
         self.num_classes = num_classes
         self.out_hw = tuple(out_hw)
         self.ds_hw = tuple(ds_hw)
         self.device = torch.device(device)
-        self.score = RunningScore(num_classes, self.device)
+        self.spatial = None
+        if shard == "spatial":
+            self.spatial = spatial or spatial_mod.group_shard()
+            if self.out_hw[0] % self.spatial.n:
+                raise ValueError(f"shard='spatial': out_hw[0] = {self.out_hw[0]} does not "
+                                 f"divide by the {self.spatial.n} shards")
+        self.score = (RunningScore if self.spatial is None else _ShardScore)(num_classes,
+                                                                             self.device)
 
     def update(self, image, label) -> torch.Tensor:
         """Score one NHWC image batch against its (B, H, W) labels; returns
-        the (B, H, W) predictions on the device."""
+        the (B, H, W) predictions on the device (height-sharded: this
+        shard's rows of them)."""
+        if self.spatial is not None:
+            return self._update_rows(image, label)
         with torch.inference_mode():
             image = torch.as_tensor(image).to(self.device, non_blocking=True)
             label = torch.as_tensor(label).to(self.device, non_blocking=True)
             merged = two_scale_logits(self.apply_fn, image, self.out_hw, self.ds_hw)
             pred = torch.argmax(merged, dim=-1)
             self.score.update(label, pred)
+        return pred
+
+    def _update_rows(self, image, label) -> torch.Tensor:
+        shard = self.spatial
+        with torch.inference_mode(), shard.active():
+            image = shard.slice_rows(torch.as_tensor(image)).to(self.device, non_blocking=True)
+            label = shard.slice_rows(torch.as_tensor(label)).to(self.device, non_blocking=True)
+            merged = two_scale_logits(self.apply_fn, image, self.out_hw, self.ds_hw)
+            pred = torch.argmax(merged, dim=-1)
+            counts = confusion_update(torch.zeros_like(self.score.confusion), label, pred,
+                                      self.num_classes)
+            self.score.confusion = self.score.confusion + shard.all_reduce(counts)
         return pred

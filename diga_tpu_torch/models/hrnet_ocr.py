@@ -50,6 +50,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import MEMORY_FORMAT
+from ..parallel import spatial, spatial_ops
 from .resnet_deeplab import ChannelDropout
 
 BN_EPS = 1e-5
@@ -164,10 +165,14 @@ class Bottleneck(nn.Module):
         return self.relu(y)
 
 
-def _upsample(x: torch.Tensor, hw) -> torch.Tensor:
-    """Bilinear, ``align_corners=True``, in x's dtype (backbone-internal, as
-    the JAX model runs it in the compute dtype)."""
-    return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=True)
+def _upsample(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Bilinear, ``align_corners=True``, to ``like``'s height and width, in
+    x's dtype (backbone-internal, as the JAX model runs it in the compute
+    dtype); in a height-sharded eval to ``like``'s whole height, f32 inside."""
+    shard = spatial.current()
+    if shard is not None:
+        return spatial_ops.resize_rows(shard, x, (shard.height(like), like.shape[-1]))
+    return F.interpolate(x, size=tuple(like.shape[-2:]), mode="bilinear", align_corners=True)
 
 
 class HRModule(nn.Module):
@@ -203,7 +208,7 @@ class HRModule(nn.Module):
                 if j == i:
                     v = ys[j]
                 elif j > i:
-                    v = _upsample(layer(ys[j]), ys[i].shape[-2:])
+                    v = _upsample(layer(ys[j]), ys[i])
                 else:
                     v = layer(ys[j])
                 acc = v if acc is None else acc + v
@@ -255,8 +260,7 @@ class HRNet(nn.Module):
                   for i, layer in enumerate(trans)]
             for module in getattr(self, f"stage{si}"):
                 xs = module(xs)
-        hw = xs[0].shape[-2:]
-        return torch.cat([xs[0]] + [_upsample(v, hw) for v in xs[1:]], dim=1)
+        return torch.cat([xs[0]] + [_upsample(v, xs[0]) for v in xs[1:]], dim=1)
 
 
 class OCRHead(nn.Module):
@@ -292,11 +296,16 @@ class OCRHead(nn.Module):
         pix = self.pixel_representations(feats)
         b, c, h, w = pix.shape
         k, kc = aux.shape[1], self.key_channels
+        shard = spatial.current()
         with torch.autocast(pix.device.type, enabled=False):
             # soft regions: a softmax over the pixel axis, region
-            # representations as probability-weighted pixel sums (:408-412)
-            probs = torch.softmax(aux.float().reshape(b, k, h * w), dim=-1)
-            region = torch.bmm(probs, pix.float().reshape(b, c, h * w).transpose(1, 2))
+            # representations as probability-weighted pixel sums (:408-412);
+            # over every shard's pixels in a height-sharded eval
+            if shard is None:
+                probs = torch.softmax(aux.float().reshape(b, k, h * w), dim=-1)
+                region = torch.bmm(probs, pix.float().reshape(b, c, h * w).transpose(1, 2))
+            else:
+                region = spatial_ops.soft_regions(shard, aux, pix)
         region = region.to(pix.dtype).transpose(1, 2)[..., None]  # (B, C, K, 1)
         query = self.pixel_region_relations["pixel_rep"](pix)
         key = self.pixel_region_relations["obj_reg_rep"](region)

@@ -44,7 +44,7 @@ import torch.nn as nn
 
 from .. import MEMORY_FORMAT
 from ..ops.group_norm import group_norm, group_norm_plain
-from ..parallel import dist
+from ..parallel import dist, spatial, spatial_ops
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention; flax 0.9
@@ -102,6 +102,8 @@ class FusedGroupNorm(nn.Module):
     is the differentiable PyTorch form of the same formula, the
     counterpart of the XLA form the JAX training step keeps
     (``diga_tpu/train/build.py:259-263``); B2 has no backward kernel.
+    In a height-sharded eval (``parallel/spatial.py``) its statistics are
+    summed over the shards between B2a and B2b.
     """
 
     def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5):
@@ -113,6 +115,10 @@ class FusedGroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xh = x.permute(0, 2, 3, 1)
+        shard = spatial.current()
+        if shard is not None:  # height-sharded eval: B2a, the sums over the shards, B2b
+            return spatial_ops.group_norm(shard, xh, self.weight, self.bias, self.num_groups,
+                                          self.eps).permute(0, 3, 1, 2)
         needs_grad = torch.is_grad_enabled() and (
             x.requires_grad or self.weight.requires_grad or self.bias.requires_grad)
         norm = group_norm_plain if needs_grad else group_norm
@@ -143,7 +149,8 @@ class ChannelDropout(nn.Module):
 
 
 class SEBlock(nn.Module):
-    """Squeeze-excitation over channels (reference :122-137); mean in f32."""
+    """Squeeze-excitation over channels (reference :122-137); mean in f32,
+    over every shard's rows in a height-sharded eval."""
 
     def __init__(self, channels: int, reduction: int = 16):
         super().__init__()
@@ -152,7 +159,9 @@ class SEBlock(nn.Module):
             nn.Linear(channels // reduction, channels), nn.Sigmoid())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = torch.mean(x, dim=(2, 3), dtype=torch.float32)
+        shard = spatial.current()
+        s = (torch.mean(x, dim=(2, 3), dtype=torch.float32) if shard is None
+             else spatial_ops.spatial_mean(shard, x))
         s = self.se(s.to(x.dtype))
         return x * s[:, :, None, None]
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 
 import torch
 
@@ -36,6 +37,8 @@ from . import native
 from .stats import sums_and_squares
 
 launches = {"group_norm_stats": 0, "group_norm_apply": 0}
+# the height-sharded eval launches from one thread per shard (parallel/spatial.py)
+_lock = threading.Lock()
 
 _MAX_VECTORS_PER_ROW = 1024  # C / (16 bytes / element size)
 _MAX_GROUP_CHANNELS = 256  # C / groups
@@ -57,8 +60,16 @@ APPLY_BLOCKS_PER_SM = 4
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _lock:
+        for k in launches:
+            launches[k] = 0
+
+
+def count_launch(*names: str) -> None:
+    """One more launch of each named kernel (a read-modify-write: locked)."""
+    with _lock:
+        for k in names:
+            launches[k] += 1
 
 
 @functools.cache
@@ -118,20 +129,31 @@ def _check_aligned(*tensors: torch.Tensor) -> None:
 # plain versions (PyTorch ops; the CPU path and the kernels' yardstick)
 # ---------------------------------------------------------------------------
 
-def group_norm_stats_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                           num_groups: int = 32, eps: float = 1e-5):
-    """(Σx [B,C] f32, Σx² [B,C] f32, mul [B,C] x.dtype, add [B,C] x.dtype)."""
-    b, h, w, c = x.shape
+def fold_group_stats(s_c: torch.Tensor, s2_c: torch.Tensor, n: float, scale: torch.Tensor,
+                     bias: torch.Tensor, num_groups: int, eps: float, dtype: torch.dtype):
+    """(mul, add) [B, C] in ``dtype`` from per-channel Σx, Σx² [B, C] f32
+    over ``n`` = H·W·C/G elements a group: the fold of ``group_norm_pallas``
+    (``diga_tpu/ops/pallas_gn.py:140,145-151``), plain XLA there too.  The
+    height-sharded GroupNorm folds its sums over every shard with it."""
+    b, c = s_c.shape
     g, cg = num_groups, c // num_groups
-    s_c, s2_c = sums_and_squares(x.to(torch.float32), (1, 2))
-    n = float(h * w * cg)
     mu = s_c.reshape(b, g, cg).sum(-1) / n
     var = torch.clamp(s2_c.reshape(b, g, cg).sum(-1) / n - mu * mu, min=0.0)
     inv = torch.rsqrt(var + eps)
     mu_c = mu.repeat_interleave(cg, dim=1)
     inv_s = inv.repeat_interleave(cg, dim=1) * scale.to(torch.float32)[None]
-    mul = inv_s.to(x.dtype)
-    add = (bias.to(torch.float32)[None] - mu_c * inv_s).to(x.dtype)
+    mul = inv_s.to(dtype)
+    add = (bias.to(torch.float32)[None] - mu_c * inv_s).to(dtype)
+    return mul, add
+
+
+def group_norm_stats_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                           num_groups: int = 32, eps: float = 1e-5):
+    """(Σx [B,C] f32, Σx² [B,C] f32, mul [B,C] x.dtype, add [B,C] x.dtype)."""
+    _, h, w, c = x.shape
+    s_c, s2_c = sums_and_squares(x.to(torch.float32), (1, 2))
+    mul, add = fold_group_stats(s_c, s2_c, float(h * w * (c // num_groups)), scale, bias,
+                                num_groups, eps, x.dtype)
     return s_c, s2_c, mul, add
 
 
@@ -332,10 +354,11 @@ def ticket_workspace(device: torch.device, n: int = 0, stream: int | None = None
     if stream is None:
         stream = torch.cuda.current_stream(device).cuda_stream
     key = (device.index, stream)
-    t = _tickets.get(key)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 8 * CLUSTER), device=device, dtype=torch.int32)
-        _tickets[key] = t
+    with _lock:  # check-then-set; threads on one stream share its tickets in stream order
+        t = _tickets.get(key)
+        if t is None or t.numel() < n:
+            t = torch.zeros(max(n, 8 * CLUSTER), device=device, dtype=torch.int32)
+            _tickets[key] = t
     return t
 
 
@@ -386,7 +409,7 @@ def group_norm_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     err = native.launch(x, _lib().gn_stats, *args, stream=stream)
     if err:
         raise RuntimeError(f"gn_stats kernel launch failed: CUDA error {err}")
-    launches["group_norm_stats"] += 1
+    count_launch("group_norm_stats")
     return out
 
 
@@ -413,7 +436,7 @@ def group_norm_apply(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor) -> t
                         mul.data_ptr(), add.data_ptr(), y.data_ptr(), b, h * w, c, plan.chunks)
     if err:
         raise RuntimeError(f"gn_apply kernel launch failed: CUDA error {err}")
-    launches["group_norm_apply"] += 1
+    count_launch("group_norm_apply")
     return y
 
 
@@ -438,6 +461,5 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     err = native.launch(x, _lib().gn_forward, *args, y.data_ptr(), plan.chunks, stream=stream)
     if err:
         raise RuntimeError(f"gn_forward (B2a + B2b) kernel launch failed: CUDA error {err}")
-    launches["group_norm_stats"] += 1
-    launches["group_norm_apply"] += 1
+    count_launch("group_norm_stats", "group_norm_apply")
     return y

@@ -4,11 +4,12 @@ The twin of ``__graft_entry__.py::dryrun_multichip`` (:79-256): at the same
 tiny shapes (crop 32x64, 19 classes, DeepLabV2 at one bottleneck a stage,
 translator encoders 8 / decoders 32 / 2-scale PatchGANs of 2 layers, an
 HRNet+OCR of branches 8-64), one image per rank, it runs the translator
-GAN step, the batch-sharded two-scale eval, the self-training step, the
+GAN step, the batch-sharded two-scale eval, the height-sharded two-scale
+eval of one image (its rows over the ranks, ``parallel/spatial.py``; the
+crop height must divide by the world), the self-training step, the
 warm-up step (with the target-stats forward) and the semiseg HRNet+OCR
 step (aux term, RGB input), each on every rank of the world, and requires
-finite losses and parameters equal on every rank after each step.  The
-spatial eval waits for the height-sharded eval (ROADMAP A15b).
+finite losses and parameters equal on every rank after each step.
 
     python -m diga_tpu_torch.parallel.dryrun N [--device cpu]
 
@@ -36,7 +37,7 @@ TINY_HRNET = {
     "stages": [(1, 1, (8, 16)), (1, 1, (8, 16, 32)), (1, 1, (8, 16, 32, 64))],
     "ocr_mid_channels": 32, "ocr_key_channels": 16,
 }
-FAMILIES = ("translator", "batch_eval", "selftrain", "warmup", "semiseg")
+FAMILIES = ("translator", "batch_eval", "spatial_eval", "selftrain", "warmup", "semiseg")
 
 
 def _global_batch(n: int, seed: int = 0) -> dict[str, np.ndarray]:
@@ -148,6 +149,19 @@ def _run_families(device: torch.device) -> dict[str, float]:
     if not math.isfinite(miou):
         raise RuntimeError(f"dryrun_multichip: non-finite eval mIoU {miou}")
     done("batch_eval", miou)
+
+    # height-sharded two-scale eval: every rank holds rows of the one image
+    from .spatial_ops import convert_spatial
+
+    smodel = convert_spatial(_seg_model("deeplab", device))
+    ev = TwoScaleEvaluator(_eval_apply(smodel, False, dtype if dtype != torch.float32 else None),
+                           NUM_CLASSES, CROP, (CROP[0] // 2, CROP[1] // 2), device,
+                           shard="spatial")
+    ev.update(full["s_img"][:1], full["s_lbl"][:1])
+    miou = float(ev.score.get_scores()[0]["mean_iou"])
+    if not math.isfinite(miou):
+        raise RuntimeError(f"dryrun_multichip: non-finite spatial eval mIoU {miou}")
+    done("spatial_eval", miou)
 
     # self-training: centroids replicated, the scan over every rank's rows
     opt = sgd_grouped(model, 2.5e-4)

@@ -83,12 +83,13 @@ def test_evaluate_val_defaults_to_the_card(fixture_args):
                                    ["--shard", "spatial"]])
 def test_multi_device_flags_are_refused(fixture_args, flags, capsys):
     """A world of no rank, ``--multihost`` outside torchrun's environment
-    and the height-sharded eval (ROADMAP A15b) are refused; ``--n_devices
-    2`` runs (tests/test_torch_port_parallel_cli.py)."""
+    and a height-sharded eval without a world (JAX's refusal) are refused;
+    ``--n_devices 2`` runs (tests/test_torch_port_parallel_cli.py,
+    tests/test_torch_port_spatial.py)."""
     with pytest.raises(SystemExit):
         port_cli.main([*fixture_args, "--device", "cpu", *flags])
     assert {"--n_devices": "at least 1", "--multihost": "torchrun",
-            "--shard": "A15b"}[flags[0]] in capsys.readouterr().err
+            "--shard": "--shard spatial requires --n_devices"}[flags[0]] in capsys.readouterr().err
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -110,7 +111,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         " 'diga_tpu_torch.utils.native', 'diga_tpu_torch.ops.extras',"
         " 'diga_tpu_torch.cli.soak', 'diga_tpu_torch.cli.make_viz',"
         " 'diga_tpu_torch.parallel.dist', 'diga_tpu_torch.parallel.sync_bn',"
-        " 'diga_tpu_torch.parallel.dryrun'}\n"
+        " 'diga_tpu_torch.parallel.dryrun', 'diga_tpu_torch.parallel.spatial',"
+        " 'diga_tpu_torch.parallel.spatial_ops'}\n"
         "print(len(mods), bad, sorted(new - set(mods)))\n"
         "sys.exit(1 if bad or new - set(mods) or len(mods) < 50 else 0)\n"
     )
