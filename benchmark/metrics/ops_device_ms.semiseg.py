@@ -1,0 +1,8 @@
+"""Device ms a step charged to aug_mix + loss_resize + optimizer_ema + misc
+(ops/photometric.py, mixing.py, losses.py, distill.py, ema.py, the SGD)."""
+
+from benchmark.harness.metrics import Context, component_ms
+
+
+def read(ctx: Context):
+    return component_ms(ctx, ("aug_mix", "loss_resize", "optimizer_ema", "misc"))
