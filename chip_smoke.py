@@ -148,7 +148,8 @@ Phases, any failure of which exits non-zero:
      self-training step fused against unfused as in 7b (one fused step
      launches B1 once and no B2), and the unfused step with its profiler
      scopes switched off, in turns with it, beside the scopes' count a step
-     and their host cost alone
+     and their host cost alone: a bare ``record_function``, and the port's
+     ``span`` with no recording open and with one
   8d. soaks through ``soak``'s CLI, each asserting its own invariants:
      ``--mode onchip --preset gta2city_warmup`` at full width
      (``SOAK_ONCHIP_STEPS``), ``--preset dg_gta5`` on 96x160 fixtures at
@@ -302,6 +303,7 @@ from diga_tpu_torch.train.steps import (StepConfig, build_dg_step, build_selftra
 from diga_tpu_torch.train.steps_translator import ROLES, build_translator_step
 from diga_tpu_torch.utils import native as host_ops
 from diga_tpu_torch.utils.checkpoint import export_role_keyed
+from diga_tpu_torch.utils import profiling as span_recorder
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
 # f32 non-tensor-core FLOP/s, the rate the GroupNorm arithmetic runs at
@@ -2265,7 +2267,7 @@ def scopes_off(calls: list):
         return contextlib.nullcontext()
 
     sites = [(steps_module, "scope"), (steps_translator_module, "scope"),
-             (translator_module, "record_function")]
+             (translator_module, "scope")]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr in sites]
     for mod, attr in sites:
         setattr(mod, attr, off)
@@ -2276,14 +2278,15 @@ def scopes_off(calls: list):
             setattr(mod, attr, fn)
 
 
-def scope_host_us(n: int = 20000) -> float:
-    """Host µs of one ``record_function`` enter and exit with no profiler
-    running (the best of 3 loops of ``n``)."""
+def scope_host_us(n: int = 20000, make=torch.profiler.record_function) -> float:
+    """Host µs of one scope enter and exit with no profiler running (the
+    best of 3 loops of ``n``): ``make(name)`` gives the scope, a bare
+    ``record_function`` or the port's ``span``."""
     best = math.inf
     for _ in range(3):
         t0 = time.perf_counter()
         for _ in range(n):
-            with torch.profiler.record_function("scope_cost"):
+            with make("scope_cost"):
                 pass
         best = min(best, (time.perf_counter() - t0) / n * 1e6)
     return best
@@ -2346,10 +2349,15 @@ def phase_fused_timing(preset: str, data_paths: dict, card: str, profile_dir: st
     if unscoped:
         per_step = calls[0] / (4 * len(times["unscoped"]))
         us = scope_host_us()
+        span_off = scope_host_us(make=span_recorder.span)
+        with span_recorder.recording():
+            span_on = scope_host_us(make=span_recorder.span)
         scope_cost = {"ms_per_step_unscoped": out["unscoped"]["ms_per_step"],
-                      "scopes_per_step": per_step, "scope_host_us": us}
+                      "scopes_per_step": per_step, "scope_host_us": us,
+                      "span_off_host_us": span_off, "span_on_host_us": span_on}
         print(f"the steps' profiler scopes: {per_step:.0f} a step, {us:.3f} host us each "
-              f"alone ({per_step * us / 1e3:.4f} ms a step); unfused "
+              f"alone ({per_step * us / 1e3:.4f} ms a step), a span {span_off:.3f} with no "
+              f"recording open, {span_on:.3f} with one; unfused "
               f"{out['unfused']['ms_per_step']:.2f} ms/step {times['unfused']} with them, "
               f"{out['unscoped']['ms_per_step']:.2f} {times['unscoped']} without | card={card}",
               flush=True)

@@ -23,6 +23,12 @@ shards), the model's sharded modules and the three resizes of
 ``two_scale_logits`` compute its rows of the logits, argmax is local, and
 each image's confusion counts over the shard's label rows are summed over
 the shards (int64), so every shard holds the one-process matrix.
+
+``update`` runs in spans (``utils/profiling.py::span``): one
+``eval_update`` around ``h2d`` (the image's and label's host-to-device
+copies), the model's forwards (named after its class by the caller's
+``apply_fn``, ``train/build.py::_eval_apply``), each of the three
+``resize`` calls, ``merge_argmax`` and ``confusion``.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from ..ops.metrics import RunningScore, confusion_update, scores_from_confusion
 from ..ops.resize import resize_bilinear
 from ..parallel import spatial as spatial_mod
 from ..parallel import spatial_ops
+from ..utils.profiling import span
 
 
 def iter_val(ds, limit=None, batch=1, rank: int = 0, world: int = 1):
@@ -68,17 +75,29 @@ def _resize(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """``resize_bilinear`` of NHWC ``x``; in a height-sharded eval ``x`` is
     this shard's rows, ``out_hw`` the whole size, and the result its rows."""
     shard = spatial_mod.current()
-    if shard is None:
-        return resize_bilinear(x, out_hw)
-    return spatial_ops.resize_rows(shard, x.permute(0, 3, 1, 2), out_hw).permute(0, 2, 3, 1)
+    with span("resize"):
+        if shard is None:
+            return resize_bilinear(x, out_hw)
+        return spatial_ops.resize_rows(shard, x.permute(0, 3, 1, 2), out_hw).permute(0, 2, 3, 1)
+
+
+def _both_scales(apply_fn: Callable, image: torch.Tensor, out_hw: tuple[int, int],
+                 ds_hw: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """(upsample(f(x)), upsample(f(downscale(x)))) at out_hw (NHWC)."""
+    up_full = _resize(apply_fn(image), out_hw)
+    up_ds = _resize(apply_fn(_resize(image, ds_hw)), out_hw)
+    return up_full, up_ds
 
 
 def two_scale_logits(apply_fn: Callable, image: torch.Tensor,
                      out_hw: tuple[int, int], ds_hw: tuple[int, int]) -> torch.Tensor:
     """max(upsample(f(x)), upsample(f(downscale(x)))) at out_hw (NHWC)."""
-    up_full = _resize(apply_fn(image), out_hw)
-    up_ds = _resize(apply_fn(_resize(image, ds_hw)), out_hw)
-    return torch.maximum(up_full, up_ds)
+    return torch.maximum(*_both_scales(apply_fn, image, out_hw, ds_hw))
+
+
+def _merge_argmax(up_full: torch.Tensor, up_ds: torch.Tensor) -> torch.Tensor:
+    with span("merge_argmax"):
+        return torch.argmax(torch.maximum(up_full, up_ds), dim=-1)
 
 
 class _ShardScore(RunningScore):
@@ -127,22 +146,26 @@ class TwoScaleEvaluator:
         shard's rows of them)."""
         if self.spatial is not None:
             return self._update_rows(image, label)
-        with torch.inference_mode():
-            image = torch.as_tensor(image).to(self.device, non_blocking=True)
-            label = torch.as_tensor(label).to(self.device, non_blocking=True)
-            merged = two_scale_logits(self.apply_fn, image, self.out_hw, self.ds_hw)
-            pred = torch.argmax(merged, dim=-1)
-            self.score.update(label, pred)
+        with span("eval_update"), torch.inference_mode():
+            with span("h2d"):
+                image = torch.as_tensor(image).to(self.device, non_blocking=True)
+                label = torch.as_tensor(label).to(self.device, non_blocking=True)
+            pred = _merge_argmax(*_both_scales(self.apply_fn, image, self.out_hw, self.ds_hw))
+            with span("confusion"):
+                self.score.update(label, pred)
         return pred
 
     def _update_rows(self, image, label) -> torch.Tensor:
         shard = self.spatial
-        with torch.inference_mode(), shard.active():
-            image = shard.slice_rows(torch.as_tensor(image)).to(self.device, non_blocking=True)
-            label = shard.slice_rows(torch.as_tensor(label)).to(self.device, non_blocking=True)
-            merged = two_scale_logits(self.apply_fn, image, self.out_hw, self.ds_hw)
-            pred = torch.argmax(merged, dim=-1)
-            counts = confusion_update(torch.zeros_like(self.score.confusion), label, pred,
-                                      self.num_classes)
-            self.score.confusion = self.score.confusion + shard.all_reduce(counts)
+        with span("eval_update"), torch.inference_mode(), shard.active():
+            with span("h2d"):
+                image = shard.slice_rows(torch.as_tensor(image)).to(self.device,
+                                                                    non_blocking=True)
+                label = shard.slice_rows(torch.as_tensor(label)).to(self.device,
+                                                                    non_blocking=True)
+            pred = _merge_argmax(*_both_scales(self.apply_fn, image, self.out_hw, self.ds_hw))
+            with span("confusion"):
+                counts = confusion_update(torch.zeros_like(self.score.confusion), label, pred,
+                                          self.num_classes)
+                self.score.confusion = self.score.confusion + shard.all_reduce(counts)
         return pred

@@ -27,11 +27,11 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from .. import MEMORY_FORMAT
 from ..ops.stats import sums_and_squares
 from ..ops.subpixel import nearest_up2_conv5x5
+from ..utils.profiling import span as scope
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -207,7 +207,7 @@ def translate(frozen: nn.ModuleDict, img: torch.Tensor) -> torch.Tensor:
     package's ``translator_apply``, ``diga_tpu/train/build.py:111-124``);
     each module runs in a profiler scope named after its class."""
     enc, dec = frozen["enc_s"], frozen["dec_s2t"]
-    with record_function(type(enc).__name__):
+    with scope(type(enc).__name__):
         z = enc(img.permute(0, 3, 1, 2))
-    with record_function(type(dec).__name__):
+    with scope(type(dec).__name__):
         return dec(z).permute(0, 2, 3, 1)

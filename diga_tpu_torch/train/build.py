@@ -37,6 +37,7 @@ from ..ops.prototypes import Centroids
 from ..parallel import dist
 from ..parallel.sync_bn import convert_sync_bn
 from ..utils.checkpoint import export_role_keyed, load_role_keyed
+from ..utils.profiling import span
 from .optim import sgd_grouped
 from .schedules import poly_schedule, poly_warmup_schedule
 from .state import SegModel, SegTrainState, create_seg_state, reference_state_dict
@@ -103,7 +104,8 @@ def _use_benchmark_convs(device: torch.device) -> None:
 
 def _eval_apply(model: SegModel, rgb_input: bool, amp_dtype: torch.dtype | None) -> Callable:
     """``eval_apply(image_nhwc) -> logits_nhwc`` with ``model`` in eval mode
-    for the call (a training model goes back to train mode after it)."""
+    for the call (a training model goes back to train mode after it); the
+    forward runs in a span named after the model's class, as the steps'."""
 
     def eval_apply(img: torch.Tensor) -> torch.Tensor:
         if rgb_input:
@@ -115,7 +117,7 @@ def _eval_apply(model: SegModel, rgb_input: bool, amp_dtype: torch.dtype | None)
         try:
             amp = (torch.autocast(device_type=img.device.type, dtype=amp_dtype)
                    if amp_dtype is not None else contextlib.nullcontext())
-            with amp:
+            with amp, span(type(model).__name__):
                 _, _, logits, _ = model(img.permute(0, 3, 1, 2))
         finally:
             model.train(was_training)

@@ -55,8 +55,10 @@ from ..data.loader import BatchLoader
 from ..data.prefetch import device_prefetch
 from ..eval.evaluator import TwoScaleEvaluator, iter_val
 from ..parallel import dist
+from ..utils import profiling
 from ..utils.checkpoint import save_train_state, wait_for_checkpoints
 from ..utils.logging import MetricLogger
+from ..utils.profiling import span
 from ..utils.visualize import dump_train_views
 from .build import wants_target
 from .state import SegTrainState
@@ -183,6 +185,16 @@ def to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
+def span_means(spans: list) -> dict:
+    """Mean host ms of the data waits and of the steps among recorded ``spans``."""
+    out = {}
+    for key, name in (("data_wait_ms", "data_wait"), ("step_host_ms", "train_step")):
+        ms = [(end - start) / 1e6 for n, _, start, end, _ in spans if n == name]
+        if ms:
+            out[key] = sum(ms) / len(ms)
+    return out
+
+
 @dataclasses.dataclass
 class TrainLoopResult:
     best_miou: float
@@ -239,11 +251,13 @@ def run_training(cfg: ExperimentConfig, state: SegTrainState, step_fn: Callable,
     evaluator = None
     prof = None
     t_last = time.time()
+    rec = profiling.start_recording()
     try:
         for i in range(state.step, steps):
             if writer and profile_steps and i == profile_steps[0]:
                 prof = _start_profile(device)
-            batch = next(it)
+            with span("data_wait"):
+                batch = next(it)
             batch.pop("t_lbl", None)
             metrics = step_fn(state, batch)
             if prof is not None and i == profile_steps[1]:
@@ -254,25 +268,31 @@ def run_training(cfg: ExperimentConfig, state: SegTrainState, step_fn: Callable,
                                  {"source": batch["s_img"][:2].cpu().numpy()},
                                  {"label": batch["s_lbl"][:2].cpu().numpy()})
             if writer and save_every and save_path and i > 0 and i % save_every == 0:
-                save_train_state(save_path, state, background=True)
-            if writer and i % log_every == 0:
-                host = {k: float(v) for k, v in metrics.items()}
-                dt, t_last = time.time() - t_last, time.time()
-                host["steps_per_sec"] = (log_every if i else 1) / max(dt, 1e-9)
-                logger.log(i, host)
-                logger.print(i, host)
+                with span("checkpoint"):
+                    save_train_state(save_path, state, background=True)
+            if i % log_every == 0:
+                spans, _ = profiling.drain(rec)
+                if writer:
+                    with span("log"):
+                        host = {k: float(v) for k, v in metrics.items()}
+                    dt, t_last = time.time() - t_last, time.time()
+                    host["steps_per_sec"] = (log_every if i else 1) / max(dt, 1e-9)
+                    host.update(span_means(spans))
+                    logger.log(i, host)
+                    logger.print(i, host)
             if eval_apply is not None and cfg.train.eval_every > 0 and i > 0 \
                     and i % cfg.train.eval_every == 0:
-                if evaluator is None:
-                    evaluator = TwoScaleEvaluator(eval_apply, cfg.eval.num_classes,
-                                                  cfg.eval.out_hw, cfg.eval.ds_hw, device)
-                evaluator.score.reset()
-                ds = cityscapes_dataset(cfg.data.target_root, cfg.data.val_img_list,
-                                        cfg.data.val_lbl_list, split="val",
-                                        resize_hw=cfg.eval.out_hw)
-                for vb in iter_val(ds, eval_limit, rank=dist.rank(), world=dist.world()):
-                    evaluator.update(vb["image"], vb["label"])
-                miou = float(evaluator.score.get_scores()[0]["mean_iou"])
+                with span("eval"):
+                    if evaluator is None:
+                        evaluator = TwoScaleEvaluator(eval_apply, cfg.eval.num_classes,
+                                                      cfg.eval.out_hw, cfg.eval.ds_hw, device)
+                    evaluator.score.reset()
+                    ds = cityscapes_dataset(cfg.data.target_root, cfg.data.val_img_list,
+                                            cfg.data.val_lbl_list, split="val",
+                                            resize_hw=cfg.eval.out_hw)
+                    for vb in iter_val(ds, eval_limit, rank=dist.rank(), world=dist.world()):
+                        evaluator.update(vb["image"], vb["label"])
+                    miou = float(evaluator.score.get_scores()[0]["mean_iou"])
                 if writer:
                     logger.log(i, {"miou": miou}, prefix="val/")
                     print(f"step {i}: val mIoU {miou:.4f}", flush=True)
@@ -286,6 +306,7 @@ def run_training(cfg: ExperimentConfig, state: SegTrainState, step_fn: Callable,
         if writer:
             logger.plot()
     finally:
+        profiling.stop_recording(rec)
         if prof is not None:
             prof.stop()
         for ld in loaders:

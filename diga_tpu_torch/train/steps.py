@@ -35,14 +35,17 @@ and DACS work on the BGR tensor before the flip.
 Forwards run under ``torch.autocast`` in the compute dtype; parameters
 stay f32.  The metrics stay device tensors until they are logged.
 
-Every part of a step runs in a ``torch.profiler.record_function`` scope
-(``scope``), inside one ``train_step`` scope: the model forwards by class
-name (``DeepLabV2``, ``HRNetOCR``), the frozen translator by module
-(``ImgEncoder``, ``ImgDecoder``), ``photometric``, ``crdomix`` (DACS as
-``crdomix/dacs``), ``prototypes``, ``cross_entropy`` (OHEM and the aux
-term), ``distill``, ``resize``, ``ema`` and ``sgd``: the names
+Every part of a step runs in a scope (``scope``, the port's
+``utils/profiling.py::span``: a ``torch.profiler.record_function``, kept
+as a host span while a recording is open), inside one ``train_step``
+scope: the model forwards by class name (``DeepLabV2``, ``HRNetOCR``),
+the frozen translator by module (``ImgEncoder``, ``ImgDecoder``),
+``photometric``, ``crdomix`` (DACS as ``crdomix/dacs``), ``prototypes``,
+``cross_entropy`` (OHEM and the aux term), ``distill``, ``resize``,
+``ema`` and ``sgd``: the names
 ``utils/profiling.py::default_component``, the JAX package's rule, reads.
-A scope only marks a span of the profiler's trace: it computes nothing.
+A scope only marks a span of the profiler's trace and of a recording: it
+computes nothing and synchronises nothing.
 
 Under a process group (``parallel/dist.py``) the same order of operations
 runs on every rank's share of the global batch: the BNs are
@@ -64,7 +67,6 @@ import functools
 from typing import Callable
 
 import torch
-from torch.profiler import record_function as scope
 
 from ..models.translator import translate
 from ..ops import distill as D
@@ -75,6 +77,7 @@ from ..ops.ema import ema_alpha, ema_update
 from ..ops.losses import cross_entropy2d, ohem_cross_entropy
 from ..ops.resize import resize_bilinear
 from ..parallel import dist
+from ..utils.profiling import span as scope
 from .optim import set_lr
 from .state import SegTrainState
 

@@ -43,12 +43,12 @@ from typing import Callable
 
 import torch
 import torch.nn as nn
-from torch.profiler import record_function as scope
 from torch.utils.checkpoint import checkpoint
 
 from ..models.vgg import VGG19Features, vgg_perceptual_loss
 from ..ops import losses as L
 from ..parallel import dist
+from ..utils.profiling import span as scope
 from .optim import adam_translator, set_lr
 from .steps import _autocast, in_scope
 

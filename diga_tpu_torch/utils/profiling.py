@@ -19,19 +19,39 @@ op's scopes, joined through the autograd sequence number, as
 ``backward``.  What cannot be joined is ``unmatched``, as in JAX's
 ``attribute_trace``.  The JAX module's xplane and HLO parsing has no
 counterpart: there is no XLA program here.
+
+Spans (``span``) are the port's one scope helper: every scope of the
+steps, the evaluator and the loop is a ``span``, which always enters
+``record_function`` (what the attribution above reads) and, while a
+recording is open (``recording()``, or ``start_recording`` /
+``stop_recording``), also keeps ``(name, parent, start_ns, end_ns,
+thread)`` on ``time.perf_counter_ns``; ``count(name, n)`` adds to a
+tally.  Nothing touches the device or synchronises, and with no recording
+open a span costs one check beyond ``record_function``.  Recordings may
+nest: each keeps every span from its start, and is drained and stopped on
+its own.  ``mark_clock`` puts a marker the trace records (one tiny kernel
+launch on the card, a ``record_function`` on the CPU) between host clock
+reads; ``spans_on_trace`` maps the recorded spans onto a trace's timeline
+by the offsets the first and last markers measure, and reports the drift
+between them: the profiler's clock is not assumed to be
+``perf_counter_ns``.
 """
 
 from __future__ import annotations
 
 import bisect
+import contextlib
+import math
 import os
 import re
+import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
+from torch.profiler import record_function
 
 # the port's own kernels (csrc/distill.cu: B1a/B1b; csrc/group_norm.cu: B2a/B2b)
 PORT_KERNELS = {"distill": re.compile(r"(?<![A-Za-z0-9])distill_\w+"),
@@ -194,6 +214,11 @@ def _scopes_of(cpu_events) -> dict:
     return where
 
 
+def _is_launch(name: str) -> bool:
+    """A kernel launch call of the CUDA runtime or driver API."""
+    return name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+
+
 def _is_runtime(e) -> bool:
     """A CUDA runtime or driver API call (cudaLaunchKernel, cudaLaunchKernelExC,
     cudaMemcpyAsync, cuLaunchKernel, ...), not an op."""
@@ -327,3 +352,182 @@ def profile_step(step_fn: Callable[[], object], trace_dir: str, device: torch.de
     with open(os.path.join(trace_dir, "ops.txt"), "w") as f:
         f.write(table)
     return events, step_ms, table, prof.events()
+
+
+# ---------------------------------------------------------------------------
+# spans: the one scope helper, and a recorder on the host's clock
+# ---------------------------------------------------------------------------
+
+CLOCK_MARK = "span_clock_mark"
+# the marker launched on the card: torch.cuda._sleep's spin kernel
+MARK_KERNEL = re.compile(r"spin_kernel")
+
+
+@dataclass
+class Recording:
+    """What an open recording keeps: spans ``(name, parent, start_ns,
+    end_ns, thread)`` on ``time.perf_counter_ns`` (``parent`` the name of
+    the recorded span enclosing it on its thread, or None; ``thread`` the
+    native thread id), tallies by name, and the four clock reads of each
+    clock marker (``mark_clock``).  A span starts midway between the reads
+    around entering its ``record_function`` and ends at the read after
+    leaving it: the nearest a host read comes to where a profiler stamps
+    the scope."""
+
+    spans: list = field(default_factory=list)
+    counts: dict = field(default_factory=lambda: defaultdict(int))
+    marks: list = field(default_factory=list)
+
+
+_recordings: list = []  # the open recordings, each keeps every span
+_open = threading.local()  # .names: the recorded spans open on this thread; .thread: its id
+
+
+class _RecordedSpan:
+    __slots__ = ("name", "recs", "scope", "parent", "t0")
+
+    def __init__(self, name: str, recs: tuple):
+        self.name, self.recs = name, recs
+
+    def __enter__(self):
+        names = getattr(_open, "names", None)
+        if names is None:
+            names = _open.names = []
+            _open.thread = threading.get_native_id()
+        self.parent = names[-1] if names else None
+        names.append(self.name)
+        self.scope = record_function(self.name)
+        t = time.perf_counter_ns()
+        self.scope.__enter__()
+        self.t0 = (t + time.perf_counter_ns()) // 2
+        return self
+
+    def __exit__(self, *exc):
+        self.scope.__exit__(*exc)
+        t1 = time.perf_counter_ns()
+        _open.names.pop()
+        kept = (self.name, self.parent, self.t0, t1, _open.thread)
+        for rec in self.recs:
+            rec.spans.append(kept)
+
+
+def span(name: str):
+    """A ``record_function`` scope ``name``, kept as a span by every open
+    recording."""
+    if not _recordings:
+        return record_function(name)
+    return _RecordedSpan(name, tuple(_recordings))
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the tally ``name`` of every open recording."""
+    for rec in _recordings:
+        rec.counts[name] += n
+
+
+def start_recording() -> Recording:
+    """Open a recording; one opened inside another keeps the same spans from
+    then on, and each is drained and stopped on its own."""
+    rec = Recording()
+    _recordings.append(rec)
+    return rec
+
+
+def stop_recording(rec: Recording) -> Recording:
+    _recordings.remove(rec)
+    return rec
+
+
+@contextlib.contextmanager
+def recording():
+    """Spans and tallies kept for the body: yields the ``Recording``."""
+    rec = start_recording()
+    try:
+        yield rec
+    finally:
+        stop_recording(rec)
+
+
+def drain(rec: Recording) -> tuple[list, dict]:
+    """``rec``'s spans and tallies so far, which it then forgets."""
+    spans, counts = rec.spans, dict(rec.counts)
+    rec.spans, rec.counts = [], defaultdict(int)
+    return spans, counts
+
+
+def mark_clock(device: torch.device | str) -> None:
+    """A marker the trace records, its host clock reads kept in the
+    ``marks`` of every open recording: a ``record_function`` (what a CPU
+    trace records) around one launch of a tiny kernel on a card (what a
+    trace of CUDA activity alone records)."""
+    device = torch.device(device)
+    with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+        t0 = time.perf_counter_ns()
+        with record_function(CLOCK_MARK):
+            t1 = time.perf_counter_ns()
+            if device.type == "cuda":
+                torch.cuda._sleep(1)
+            t2 = time.perf_counter_ns()
+        t3 = time.perf_counter_ns()
+    for rec in _recordings:
+        rec.marks.append((t0, t1, t2, t3))
+
+
+def clock_offsets(events, marks: list) -> list[tuple[float, float]]:
+    """(start, end) offsets, trace µs minus host µs, at each clock marker
+    of ``marks``, in order.
+
+    A marker is four host clock reads: before and after entering its
+    ``record_function``, and before and after leaving it, the marker
+    kernel's launch between the middle two.  In a trace of the card two
+    markers bracket the traced work, so they are its first and last kernel
+    launches (checked against their kernel's name where the trace kept the
+    kernel: a session can lose the device records of its first kernels,
+    never their launch calls); a launch call starts after the second read
+    and ends before the third.  In a trace of the CPU the
+    ``record_function``'s start is matched with the midpoint of the first
+    two reads and its end with the last read, as a span's ends are read
+    (``Recording``), so what the profiler adds to entering and leaving a
+    scope it records cancels."""
+    from torch.autograd import DeviceType
+
+    launches = sorted((e.time_range.start, e.time_range.end, e.id) for e in events
+                      if e.device_type == DeviceType.CPU and _is_launch(e.name))
+    if launches:
+        if len(marks) != 2 or len(launches) < 2:
+            raise ValueError(f"a trace of the card with {len(launches)} kernel launches "
+                             f"needs 2 clock markers, the recording has {len(marks)}")
+        ends = (launches[0], launches[-1])
+        kept = {e.id: e.name for e in events if e.device_type == DeviceType.CUDA}
+        wrong = [kept[i] for _, _, i in ends if i in kept and not MARK_KERNEL.search(kept[i])]
+        if wrong:
+            raise ValueError(f"the trace's first or last kernel launch is not a clock "
+                             f"marker: {wrong}")
+        return [(s - t1 / 1e3, e - t2 / 1e3) for (s, e, _), (_, t1, t2, _) in zip(ends, marks)]
+    scopes = sorted((e.time_range.start, e.time_range.end) for e in events
+                    if e.device_type == DeviceType.CPU and e.name == CLOCK_MARK)
+    if len(scopes) != len(marks):
+        raise ValueError(f"the trace holds {len(scopes)} clock markers, "
+                         f"the recording {len(marks)}")
+    return [(s - (t0 + t1) / 2e3, e - t3 / 1e3)
+            for (s, e), (t0, t1, t2, t3) in zip(scopes, marks)]
+
+
+def spans_on_trace(rec: Recording, events) -> tuple[list, float]:
+    """(the recording's spans as ``(name, parent, start_us, end_us, thread)``
+    on the trace's timeline, the drift in µs between its first and last
+    clock markers).  Each offset is the first marker's, moved linearly to
+    the last one's between them (one marker: constant)."""
+    off = clock_offsets(events, rec.marks)
+    if not off:
+        raise ValueError("the recording has no clock marker")
+    (s0, e0), (s1, e1) = off[0], off[-1]
+    h0, h1 = rec.marks[0][0] / 1e3, rec.marks[-1][0] / 1e3
+    span_us = h1 - h0 if h1 > h0 else math.inf
+
+    def at(ns, first, last):
+        us = ns / 1e3
+        return us + first + (last - first) * (us - h0) / span_us
+
+    return ([(n, p, at(s, s0, s1), at(e, e0, e1), t) for n, p, s, e, t in rec.spans],
+            (s1 + e1 - s0 - e0) / 2)

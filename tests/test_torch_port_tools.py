@@ -16,11 +16,14 @@
   ``<work_dir>/profile``, the loss curves are PNGs beside
   ``metrics.jsonl``, and a new best mIoU with no ``on_best`` writes no
   ``weights/`` (the CLI's ``on_best`` writes ``weights/`` and
-  ``ckpt_best/``: ``tests/test_torch_port_train_cli.py``).
+  ``ckpt_best/``: ``tests/test_torch_port_train_cli.py``); each logged
+  step's record carries the mean host ms of its window's data waits and
+  steps (the loop's spans).
 """
 
 import dataclasses
 import filecmp
+import json
 import os
 import types
 
@@ -374,6 +377,16 @@ def test_loss_and_miou_curves_are_written(loop_run):
     pytest.importorskip("matplotlib")
     pngs = set(os.listdir(loop_run["wd"]))
     assert {"loss.png", "loss_semseg.png", "loss_distil.png", "val_miou.png"} <= pngs
+
+
+def test_logged_records_carry_the_loop_spans(loop_run):
+    with open(loop_run["wd"] / "metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    steps = [r for r in recs if "loss" in r]
+    assert [r["step"] for r in steps] == [0, 1, 2]
+    for r in steps:
+        assert r["data_wait_ms"] >= 0.0 and r["step_host_ms"] > 0.0, r
+    assert not any("data_wait_ms" in r for r in recs if "val/miou" in r)
 
 
 def test_no_on_best_writes_no_weights(loop_run):
