@@ -199,8 +199,12 @@ Phases, any failure of which exits non-zero:
      ``group_norm`` (the pair) per site; then the ``kernels`` JSON line, the
      card line and the result line
 
-Every main path runs with every kernel's launch count set to 0 just before
-it and read just after, and requires per run (B1a, B1b, B2a, B2b):
+Every CLI run counts the launches of the port's kernels that the card ran
+(CUPTI's kernel records, ``utils/profiling.py::device_launches``: a train path's model calls
+replay as CUDA graphs, which launch their kernels without the wrappers;
+phase 5's evaluate_val, ``dryrun_multichip`` and the height-sharded
+evals, which replay no graph, read the wrappers' tallies), and requires
+per run (B1a, B1b, B2a, B2b):
 evaluate_val (2 images) 0, 0, 24, 24; train_warm_up (3 steps) 3, 3, 18,
 18; pseudolabel_generator (2 images) 0, 0, 24, 24; calc_centroids (2
 images) 0, 0, 12, 12; train_self_training (3 steps) 3, 3, 36, 36;
@@ -218,7 +222,8 @@ the height-sharded R101 eval of one image over n shards (f32 and bf16)
 the semiseg train_warm_up (3 steps) 6, 6, 0, 0 (the logits and the
 OCR aux logits), train_self_training (3 steps) 3, 3, 0, 0, and its
 pseudolabel_generator, calc_centroids and evaluate_val 0, 0, 0, 0
-(HRNet+OCR has no GroupNorm); profile_step (6 steps) 6, 6, 36, 36; the
+(HRNet+OCR has no GroupNorm); profile_step (its 2 traced steps, from its
+own trace) 2, 2, 12, 12; the
 fused train_self_training (3 steps) 3, 3, 18, 18; parity_check 0, 0, 30,
 30 (6 for the activation input, 2 images x 2 scales x 6); the onchip
 warm-up soak (N steps) N, N, 6N, 6N; the DG fixture soak (N steps, E
@@ -296,6 +301,7 @@ from diga_tpu_torch.train.loop import make_train_iterator, make_translator_itera
 from diga_tpu_torch.train.optim import sgd_grouped
 from diga_tpu_torch.train.schedules import poly_schedule
 from diga_tpu_torch.train.state import create_seg_state
+from diga_tpu_torch.train import graphs as graphs_module
 from diga_tpu_torch.train import steps as steps_module
 from diga_tpu_torch.train import steps_translator as steps_translator_module
 from diga_tpu_torch.train.steps import (StepConfig, build_dg_step, build_selftrain_step,
@@ -1222,12 +1228,17 @@ def phase_train_timing(preset: str, data_paths: dict, card: str, profile_dir: st
     return out
 
 
-def run_path(name: str, fn, argv: list, want: dict, distill_site: tuple | None = None,
+def run_path(name: str, fn, argv: list, want: dict | None, distill_site: tuple | None = None,
              gn_sites: set | None = None):
-    """Drive one CLI with every launch count set to 0 just before and read
-    just after; require the counts to be ``want``, on a train path every
-    B1a launch at ``distill_site`` = (dtype, shape), and with ``gn_sites``
-    the GroupNorm calls at exactly those NHWC shapes."""
+    """Drive one CLI inside ``device_launches``: a train path replays its
+    model calls as CUDA graphs, whose kernels launch without their wrappers,
+    so the wrappers' tallies (``launches``) count a graphed call once, at
+    its capture, and the card's records count every run.  Require the
+    card's launches of the port's kernels to be ``want`` (None: a CLI that
+    runs a profiler of its own, counted by its caller), on a train path every B1a call at
+    ``distill_site`` = (dtype, shape), and with ``gn_sites`` the GroupNorm
+    calls at exactly those NHWC shapes (the calls that reach the wrappers:
+    eager calls and captures)."""
     sites, gn_seen = [], []
     kernel, gn_kernel = D.distillation_loss_kernel, resnet_deeplab.group_norm
 
@@ -1242,19 +1253,20 @@ def run_path(name: str, fn, argv: list, want: dict, distill_site: tuple | None =
     D.distillation_loss_kernel = recorded
     resnet_deeplab.group_norm = gn_recorded
     try:
-        reset_launches()
         t0 = time.perf_counter()
-        result = fn([*argv, "--device", DEVICE.type])
-        torch.cuda.synchronize()
-        counts = launches()
+        with (span_recorder.device_launches() if want is not None
+              else contextlib.nullcontext({})) as counts:
+            result = fn([*argv, "--device", DEVICE.type])
+            torch.cuda.synchronize()
     finally:
         D.distillation_loss_kernel = kernel
         resnet_deeplab.group_norm = gn_kernel
     print(f"main path: {name} in {time.perf_counter() - t0:.1f} s (set-up and data loading "
-          f"included); launches={counts}"
+          f"included)" + (f"; launches={counts}" if want is not None else "")
           + (f"; B1a at {sorted(set(sites))}" if sites else "")
           + (f"; B2 at {sorted(set(gn_seen))}" if gn_sites is not None else ""), flush=True)
-    require(counts == want, f"kernel launches on the {name} path {counts}, expected {want}")
+    require(want is None or counts == want,
+            f"kernel launches on the {name} path {counts}, expected {want}")
     require(distill_site is None or set(sites) == {distill_site},
             f"B1a on the {name} path at {sorted(set(sites))}, expected {distill_site}")
     require(gn_sites is None or set(gn_seen) == gn_sites,
@@ -2074,18 +2086,23 @@ def phase_profile_step(work: str, card: str) -> dict:
     """profile_step at full width (gta2city_warmup: 2 warm-up, 2 timed and 2
     traced steps on a synthetic batch), the first profiler use of the
     process: its report must hold device time in the distill and group_norm
-    families and name the port's distill_* and gn_* kernels.  Returns the
-    launch counts by path."""
+    families and name the port's distill_* and gn_* kernels, and its traced
+    steps must launch B1 once and B2 6 times a step (counted from its own
+    trace's kernel records: ``port_launches``).  Returns the launch counts
+    by path."""
     out = io.StringIO()
-    n = 2 + 2 * PROFILE_STEPS
     with contextlib.redirect_stdout(Tee(sys.stdout, out)):
-        rep, counts = run_path(
+        rep, _ = run_path(
             "profile_step", profile_step_cli.main,
             ["--preset", PRESET, "--steps", str(PROFILE_STEPS), "--components",
              "--trace_dir", os.path.join(work, "profile_step")],
-            kernel_counts(n, 6 * n), (torch.bfloat16, DISTILL_SHAPE), {GN_TRAIN_SITES[0]})
+            None, (torch.bfloat16, DISTILL_SHAPE), {GN_TRAIN_SITES[0]})
     text = out.getvalue()
     require(rep is not None and rep.total_s > 0, "profile_step: no device ops in its trace")
+    counts = span_recorder.port_launches(rep.top_ops)
+    want = kernel_counts(PROFILE_STEPS, 6 * PROFILE_STEPS)
+    require(counts == want, f"profile_step's {PROFILE_STEPS} traced steps launched {counts}, "
+                            f"expected {want}")
     require({"distill", "group_norm"} <= set(rep.by_category),
             f"profile_step: no distill or group_norm family in {sorted(rep.by_category)}")
     start, end = text.find("port kernels"), text.find("device ops (ms/step)")
@@ -2098,7 +2115,8 @@ def phase_profile_step(work: str, card: str) -> dict:
           f"{rep.step_ms:.2f} unprofiled, busy share {rep.busy_share:.3f}; families "
           + json.dumps({k: round(v[0] / PROFILE_STEPS * 1e3, 3) for k, v in
                         sorted(rep.by_category.items(), key=lambda kv: -kv[1][0])})
-          + f" ms/step; port kernels named {names} | card={card}", flush=True)
+          + f" ms/step; port kernels named {names}; launches in the traced steps {counts} "
+          f"| card={card}", flush=True)
     att = rep.components
     share = att["unmatched"] / att["total"]
     print(f"profile_step {PRESET} components, ms/step: "
@@ -2259,7 +2277,8 @@ def phase_fused_selftrain(work: str, chain: dict) -> dict:
 @contextlib.contextmanager
 def scopes_off(calls: list):
     """Every profiler scope of the steps (``train/steps.py``,
-    ``train/steps_translator.py``, ``models/translator.py``) a no-op that
+    ``train/steps_translator.py``, ``models/translator.py``,
+    ``train/graphs.py``) a no-op that
     counts its entries in ``calls[0]``, as the CPU test
     ``test_scopes_change_no_value`` switches them off."""
     def off(name):
@@ -2267,7 +2286,7 @@ def scopes_off(calls: list):
         return contextlib.nullcontext()
 
     sites = [(steps_module, "scope"), (steps_translator_module, "scope"),
-             (translator_module, "scope")]
+             (translator_module, "scope"), (graphs_module, "span")]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr in sites]
     for mod, attr in sites:
         setattr(mod, attr, off)
@@ -2318,10 +2337,10 @@ def phase_fused_timing(preset: str, data_paths: dict, card: str, profile_dir: st
     n_src, n_tgt = batch["s_img"].shape[0], batch["t_img"].shape[0]
     for step in steps.values():
         step_ms(state, step, batch, 2)  # cuDNN autotuning at the batch-9 shapes, allocator
-    reset_launches()
-    step_ms(state, fused, batch, 1)
+    with span_recorder.device_launches() as counts:
+        step_ms(state, fused, batch, 1)
     want = kernel_counts(1, gn_per_step)
-    require(launches() == want, f"one fused {preset} step launched {launches()}, expected {want}")
+    require(counts == want, f"one fused {preset} step launched {counts}, expected {want}")
     order = ("fused", "unfused", "unscoped", "unscoped", "unfused", "fused") if unscoped \
         else ("fused", "unfused", "unfused", "fused")
     times = {form: [] for form in dict.fromkeys(order)}

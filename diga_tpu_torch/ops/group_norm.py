@@ -19,7 +19,10 @@ Each wrapper adds one to ``launches[<name>]`` when it launches its
 kernel; ``group_norm_stats`` is one launch per call (the block that draws
 an image's last ticket folds it).  ``group_norm`` launches the pair from
 one host call (C entry ``gn_forward``), B2b as B2a's programmatic
-dependent, and adds one to both counts.  ``stats_plan`` and ``apply_plan``
+dependent, and adds one to both counts.  A call captured into a CUDA
+graph counts once, at its capture; its replays launch without the
+wrapper, and only the device's records count them
+(``utils/profiling.py::port_launches``).  ``stats_plan`` and ``apply_plan``
 choose the two launches' grids around the kernels' fixed tiles; they are
 plain Python, so the CPU tests hold them.
 """
@@ -344,8 +347,11 @@ def max_clusters(device_index: int, dtype: torch.dtype, c: int) -> int:
 
 # zeroed tickets, CLUSTER per image (one per slice of the channels), for
 # each (device, stream); the kernel leaves them zeroed, so two calls on one
-# stream reuse them and two streams never share them
+# stream reuse them and two streams never share them.  A workspace that a
+# larger one replaces stays allocated: a CUDA graph captured on the stream
+# (train/graphs.py) keeps using its address.
 _tickets: dict[tuple[int, int], torch.Tensor] = {}
+_retired: list[torch.Tensor] = []
 
 
 def ticket_workspace(device: torch.device, n: int = 0, stream: int | None = None) -> torch.Tensor:
@@ -357,6 +363,8 @@ def ticket_workspace(device: torch.device, n: int = 0, stream: int | None = None
     with _lock:  # check-then-set; threads on one stream share its tickets in stream order
         t = _tickets.get(key)
         if t is None or t.numel() < n:
+            if t is not None:
+                _retired.append(t)
             t = torch.zeros(max(n, 8 * CLUSTER), device=device, dtype=torch.int32)
             _tickets[key] = t
     return t

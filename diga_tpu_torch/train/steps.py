@@ -47,6 +47,12 @@ the frozen translator by module (``ImgEncoder``, ``ImgDecoder``),
 A scope only marks a span of the profiler's trace and of a recording: it
 computes nothing and synchronises nothing.
 
+Every model call (the forwards and the target-stats forward) goes through
+the step's ``calls`` (``train/graphs.py::ModelCalls``), by default a
+``ModelCalls(CudaGraphs())`` of the step's own: on the card, with no
+process group, each call is replayed as a CUDA graph; on the CPU and under
+a process group it is the plain call.
+
 Under a process group (``parallel/dist.py``) the same order of operations
 runs on every rank's share of the global batch: the BNs are
 ``SyncBatchNorm2d`` (``train/build.py``), the gradients are averaged over
@@ -78,6 +84,7 @@ from ..ops.losses import cross_entropy2d, ohem_cross_entropy
 from ..ops.resize import resize_bilinear
 from ..parallel import dist
 from ..utils.profiling import span as scope
+from .graphs import CudaGraphs, ModelCalls
 from .optim import set_lr
 from .state import SegTrainState
 
@@ -151,19 +158,19 @@ def in_scope(name: str, step: Callable) -> Callable:
     return scoped
 
 
-def _forward(model, x: torch.Tensor, segments: tuple[int, ...] = ()):
-    """``model(x)`` in a scope named after the model's class; ``segments``:
-    the local sizes of the parts ``x`` concatenates (one part if empty),
-    for the dropout draw under a process group."""
+def _forward(calls: ModelCalls, model, x: torch.Tensor, segments: tuple[int, ...] = ()):
+    """``model(x)`` through ``calls``, in a scope named after the model's
+    class; ``segments``: the local sizes of the parts ``x`` concatenates
+    (one part if empty), for the dropout draw under a process group."""
     with scope(type(model).__name__), dist.batch_segments(*(segments or (x.shape[0],))):
-        return model(x)
+        return calls.forward(model, x)
 
 
-def _logits_up(cfg: StepConfig, model, x: torch.Tensor, with_aux: bool = False,
-               segments: tuple[int, ...] = ()):
+def _logits_up(cfg: StepConfig, calls: ModelCalls, model, x: torch.Tensor,
+               with_aux: bool = False, segments: tuple[int, ...] = ()):
     """The model's logits on the NHWC batch ``x``, bilinearly upsampled to
     the crop, as NHWC; with ``with_aux`` also the aux logits, likewise."""
-    _, aux, logits, _ = _forward(model, _model_input(cfg, x), segments)
+    _, aux, logits, _ = _forward(calls, model, _model_input(cfg, x), segments)
     with scope("resize"):
         up = resize_bilinear(_nhwc(logits), cfg.crop_hw)
         return (up, resize_bilinear(_nhwc(aux), cfg.crop_hw)) if with_aux else up
@@ -214,17 +221,17 @@ def _sgd_step(state: SegTrainState, schedule: Callable[[int], float]) -> None:
     state.step += 1
 
 
-def _distill_and_update(cfg: StepConfig, schedule, state: SegTrainState, s_cat: torch.Tensor,
-                        s_lbl: torch.Tensor, t_img: torch.Tensor | None,
+def _distill_and_update(cfg: StepConfig, schedule, calls: ModelCalls, state: SegTrainState,
+                        s_cat: torch.Tensor, s_lbl: torch.Tensor, t_img: torch.Tensor | None,
                         amp) -> dict[str, torch.Tensor]:
     """Steps 4-7 of the DG and warm-up steps on ``s_cat`` = [source; view] (NHWC)."""
     b = s_lbl.shape[0]
     aux = cfg.aux_weight > 0
     seg_loss = _seg_loss_fn(cfg)
     with torch.no_grad(), amp:
-        t_up = _logits_up(cfg, state.teacher, s_cat, aux, (b, b))
+        t_up = _logits_up(cfg, calls, state.teacher, s_cat, aux, (b, b))
     with amp:
-        s_up = _logits_up(cfg, state.student, s_cat, aux, (b, b))
+        s_up = _logits_up(cfg, calls, state.student, s_cat, aux, (b, b))
         if aux:
             (t_up, t_aux_up), (s_up, s_aux_up) = t_up, s_up
         with scope("cross_entropy"):
@@ -240,20 +247,29 @@ def _distill_and_update(cfg: StepConfig, schedule, state: SegTrainState, s_cat: 
     total.backward()
     if cfg.tgt_stats_forward:
         with torch.no_grad(), amp, scope(type(state.student).__name__):
-            state.student.bn_stats_forward(_model_input(cfg, t_img))
+            calls.bn_stats_forward(state.student, _model_input(cfg, t_img))
     _sgd_step(state, schedule)
     return dist.mean_metrics({"loss": total.detach(), "loss_semseg": ce.detach(),
                               "loss_distil": distil.detach()})
 
 
-def build_dg_step(cfg: StepConfig, schedule: Callable[[int], float]) -> Callable:
+def _graphed(calls: ModelCalls | None) -> ModelCalls:
+    """``calls``, or a step's own graphed calls where it has none."""
+    return ModelCalls(CudaGraphs()) if calls is None else calls
+
+
+def build_dg_step(cfg: StepConfig, schedule: Callable[[int], float],
+                  calls: ModelCalls | None = None) -> Callable:
     """``step(state, batch, *, photometric_draws=None) -> metrics``: the
     warm-up step without the translator and CrDoMix; the second view is the
     photometric view itself (reference train_DiGA_DG.py:188-275).
 
     ``batch``: ``s_img`` (B, H, W, 3) f32 NHWC, ``s_lbl`` (B, H, W) int, and
-    ``t_img`` when ``cfg.tgt_stats_forward``.
+    ``t_img`` when ``cfg.tgt_stats_forward``.  ``calls`` makes the model
+    calls, here as in the other builders (by default graphed where they
+    can be, ``ModelCalls(CudaGraphs())``).
     """
+    calls = _graphed(calls)
 
     def step(state: SegTrainState, batch: dict, *,
              photometric_draws: dict | None = None) -> dict[str, torch.Tensor]:
@@ -262,12 +278,14 @@ def build_dg_step(cfg: StepConfig, schedule: Callable[[int], float]) -> Callable
         _ema(state)
         s_aug = _photometric(cfg, state.gen_photometric, s_img, photometric_draws)
         s_cat = torch.cat([s_img, s_aug], dim=0)
-        return _distill_and_update(cfg, schedule, state, s_cat, s_lbl, batch.get("t_img"), amp)
+        return _distill_and_update(cfg, schedule, calls, state, s_cat, s_lbl, batch.get("t_img"),
+                                   amp)
 
     return in_scope("train_step", step)
 
 
-def build_warmup_step(cfg: StepConfig, schedule: Callable[[int], float]) -> Callable:
+def build_warmup_step(cfg: StepConfig, schedule: Callable[[int], float],
+                      calls: ModelCalls | None = None) -> Callable:
     """``step(state, batch, *, selection=None, photometric_draws=None) -> metrics``.
 
     ``batch`` as for ``build_dg_step``.  ``selection`` (B, C+1) and
@@ -275,6 +293,7 @@ def build_warmup_step(cfg: StepConfig, schedule: Callable[[int], float]) -> Call
     ``cfg.photometric == 'kornia'``) replace the step's own draws (tests
     inject the JAX package's).
     """
+    calls = _graphed(calls)
 
     def step(state: SegTrainState, batch: dict, *, selection: torch.Tensor | None = None,
              photometric_draws: dict | None = None) -> dict[str, torch.Tensor]:
@@ -284,12 +303,14 @@ def build_warmup_step(cfg: StepConfig, schedule: Callable[[int], float]) -> Call
         s_aug = _photometric(cfg, state.gen_photometric, s_img, photometric_draws)
         s_mix = _crdomix_view(cfg, state, s_img, s_lbl, s_aug, selection, amp)
         s_cat = torch.cat([s_img, s_mix], dim=0)
-        return _distill_and_update(cfg, schedule, state, s_cat, s_lbl, batch.get("t_img"), amp)
+        return _distill_and_update(cfg, schedule, calls, state, s_cat, s_lbl, batch.get("t_img"),
+                                   amp)
 
     return in_scope("train_step", step)
 
 
-def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> Callable:
+def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float],
+                         calls: ModelCalls | None = None) -> Callable:
     """``step(state, batch, *, selection=None, dacs_selection=None,
     photometric_draws=None, target_photometric_draws=None) -> metrics``.
 
@@ -323,6 +344,7 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
     A fused forward draws its dropout masks once, from the model's own
     generator, as the JAX step draws one key per fused forward.
     """
+    calls = _graphed(calls)
 
     def step(state: SegTrainState, batch: dict, *, selection: torch.Tensor | None = None,
              dacs_selection: torch.Tensor | None = None,
@@ -345,14 +367,15 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
                 nt = t_img.shape[0]
                 if cfg.fuse_forwards:
                     _, _, a_logits, a_feat = _forward(
-                        state.teacher, _model_input(cfg, torch.cat([s_cat, t_img], dim=0)),
+                        calls, state.teacher, _model_input(cfg, torch.cat([s_cat, t_img], dim=0)),
                         (b, b, nt))
                     st_logits, tt_logits = a_logits[:-nt], a_logits[-nt:]
                     st_feat, tt_feat = a_feat[:-nt], a_feat[-nt:]
                 else:
-                    _, _, st_logits, st_feat = _forward(state.teacher, _model_input(cfg, s_cat),
-                                                        (b, b))
-                    _, _, tt_logits, tt_feat = _forward(state.teacher, _model_input(cfg, t_img))
+                    _, _, st_logits, st_feat = _forward(calls, state.teacher,
+                                                        _model_input(cfg, s_cat), (b, b))
+                    _, _, tt_logits, tt_feat = _forward(calls, state.teacher,
+                                                        _model_input(cfg, t_img))
             st_logits, st_feat = _nhwc(st_logits), _nhwc(st_feat)
             tt_logits, tt_feat = _nhwc(tt_logits), _nhwc(tt_feat)
             with scope("resize"):
@@ -380,12 +403,12 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float]) -> C
         with amp:
             nc = cross_img.shape[0]
             if cfg.fuse_forwards:
-                f_up = _logits_up(cfg, state.student, torch.cat([s_cat, cross_img], dim=0),
-                                  segments=(b, b, nc))
+                f_up = _logits_up(cfg, calls, state.student,
+                                  torch.cat([s_cat, cross_img], dim=0), segments=(b, b, nc))
                 s_up, cross_up = f_up[:-nc], f_up[-nc:]
             else:
-                s_up = _logits_up(cfg, state.student, s_cat, segments=(b, b))
-                cross_up = _logits_up(cfg, state.student, cross_img)
+                s_up = _logits_up(cfg, calls, state.student, s_cat, segments=(b, b))
+                cross_up = _logits_up(cfg, calls, state.student, cross_img)
             seg_loss = _seg_loss_fn(cfg)
             with scope("cross_entropy"):
                 ce = seg_loss(s_up[:b], s_lbl)

@@ -56,6 +56,15 @@ from torch.profiler import record_function
 # the port's own kernels (csrc/distill.cu: B1a/B1b; csrc/group_norm.cu: B2a/B2b)
 PORT_KERNELS = {"distill": re.compile(r"(?<![A-Za-z0-9])distill_\w+"),
                 "group_norm": re.compile(r"(?<![A-Za-z0-9])gn_\w+")}
+# each port kernel's launches by the name of its device record, under the
+# tallies' names (ops/distill.py, ops/group_norm.py); a B1a launch runs
+# distill_partial_kernel, then distill_fold_kernel
+PORT_LAUNCHES = {
+    "distill_loss": re.compile(r"(?<![A-Za-z0-9_])distill_partial_kernel(?!\w)"),
+    "distill_grad": re.compile(r"(?<![A-Za-z0-9_])distill_grad_kernel(?!\w)"),
+    "group_norm_stats": re.compile(r"(?<![A-Za-z0-9_])gn_stats_kernel(?!\w)"),
+    "group_norm_apply": re.compile(r"(?<![A-Za-z0-9_])gn_apply_kernel(?!\w)"),
+}
 # (family, pattern) in the order they are tried: the first match wins
 _FAMILIES = [
     ("copy", re.compile(r"memcpy|memset|copy|convert|nchwtonhwc|nhwctonchw|transpose")),
@@ -145,6 +154,32 @@ def report_from_events(events, n_steps: int = 1, step_ms: float | None = None
     rep.by_category = {k: (v[0], v[1]) for k, v in cat.items()}
     rep.top_ops = sorted(ops.values(), reverse=True)
     return rep
+
+
+def port_launches(top_ops) -> dict:
+    """Launches of each port kernel, by its tally's name, among a report's
+    ``top_ops``: what the card ran, the kernels of a CUDA graph's replays
+    included (CUPTI records each by name), where the wrappers' tallies
+    count a captured call once, at its capture."""
+    counts = dict.fromkeys(PORT_LAUNCHES, 0)
+    for _, n, name in top_ops:
+        for k, pattern in PORT_LAUNCHES.items():
+            if pattern.search(name):
+                counts[k] += n
+    return counts
+
+
+@contextlib.contextmanager
+def device_launches():
+    """A dict that, on leaving the block, holds ``port_launches`` of the
+    kernels the card ran inside it (a profiler of CUDA activity alone)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield counts
+        torch.cuda.synchronize()
+    counts.update(port_launches(report_from_events(prof.key_averages()).top_ops))
 
 
 def default_component(scope_path: str, backward: bool) -> str:
