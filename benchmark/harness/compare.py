@@ -4,17 +4,18 @@ Training (the first ``checked_steps`` steps of the timed step object):
   * ``loss_gap``: the largest |program loss - reference loss| / |reference
     loss| over the steps;
   * ``update_gap``: over the trainable leaves, the worst |norm of the
-    program's first update - the reference's| (the update as SGD gets it:
-    gradient + weight decay x parameter, read from the program's momentum
-    buffer after step 1), over the reference's norm of that leaf or of the
-    median leaf, whichever is larger;
+    program's first update - the reference's| (the update as the recipe's
+    optimizer gets it, read from the program's optimizer state after step
+    1 by the optimizer module, ``benchmark/reference/optimizers/``), over
+    the reference's norm of that leaf or of the median leaf, whichever is
+    larger;
   * ``change_gap``: the same for each leaf's change over the steps;
   * ``stats_gap``: the same for each BN running statistic's change (the
     train-mode forwards and the target-stats forward move them);
   * ``update_median_gap``, ``change_median_gap``: the median leaf's gap,
     steady from seed to seed where the worst leaf's is the bf16 rounding
-    of a few leaves (HRNet's trainable BN affine: its gradients are sums
-    that cancel), which ``PERF.md`` shows.
+    of a few leaves (a trainable BN affine: its gradients are sums that
+    cancel), which ``PERF.md`` shows.
 A cell compares the numbers its traffic file's ``limits`` name.
 Leaves whose reference first gradient is under a thousandth of the median
 leaf's (nought to rounding, e.g. a bias under a normalization) move under

@@ -32,7 +32,7 @@ def inputs(config: dict, traffic: dict, seed: int, device) -> tuple[dict, list, 
     sd = streams(seed)
     with torch.device("meta"):
         shapes = shapes_of(reference.build_model(config))
-    weights = seeded_state(shapes, sd["weights"], device)
+    weights = seeded_state(shapes, sd["weights"], device, reference.weight_rule(config))
     pool = traffic_mod.eval_pool(traffic, config["num_classes"], sd["data"], device)
     return weights, pool, sd
 
@@ -65,7 +65,7 @@ def kernel_sites(config: dict, traffic: dict) -> dict:
 def run(cell, seed: int, seconds: float, trace: bool, device, t0: float) -> dict:
     from .metrics import Context, elem_bytes, read_all
     from .peaks import for_device
-    from .trace import run_traced
+    from .trace import Scopes, run_traced
 
     tr = cell.traffic
     evaluator, model = program.build_eval(cell.config, tr, device)
@@ -107,7 +107,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float) -> dict
             evaluator.update(item["image"], item["label"])
             sync(device)
 
-        t = run_traced(unit, tr["trace_images"], device)
+        t = run_traced(unit, tr["trace_images"], device, Scopes.of(cell.config))
         ctx = Context(trace=t, units_per_s=imgs_per_s,
                       unit_flops=counts.eval_image_flops(cell.config, tr),
                       peaks=for_device(torch.cuda.get_device_name(device)),

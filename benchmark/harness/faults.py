@@ -1,7 +1,7 @@
 """Faults planted under the timed path, to show that the comparison fails them.
 
-Train: ``frozen`` (a step that returns its state unchanged: the SGD
-update never lands), ``HalfBatch`` (half of every batch left out, the
+Train: ``frozen`` (a step that returns its state unchanged: the
+optimizer's update never lands), ``HalfBatch`` (half of every batch left out, the
 means taken over the rest).  Eval: ``altered`` (a quarter of the image's
 answers changed where they are produced: the class logits of its top rows
 rolled by one), ``stale`` (the confusion counts never updated).
@@ -23,6 +23,7 @@ class HalfBatch:
 
     def __init__(self, inputs):
         self.inputs = inputs
+        self.recipe = inputs.recipe
 
     def batch(self, i: int) -> dict:
         return {k: v[: max(1, v.shape[0] // 2)] for k, v in self.inputs.batch(i).items()}

@@ -217,8 +217,8 @@ def reduce_light(device_ops: list, runtime: list, spans: list, marks: list, n: i
 
 def _light_profile():
     # no external correlation: no aten op is recorded to be joined to its
-    # kernels, and pushing a correlation id around each op cost HRNet's step
-    # 25 % more host time (H100)
+    # kernels, and pushing a correlation id around each op cost a step of
+    # ~11,000 launches 25 % more host time (H100)
     return profile(activities=[ProfilerActivity.CUDA],
                    experimental_config=_ExperimentalConfig(disable_external_correlation=True))
 

@@ -4,7 +4,8 @@ A cell (an entry of ``workloads``) names a configuration and a traffic
 mix; the configuration's file is the entry of ``configs`` with that name,
 the traffic mix is ``benchmark/traffic/<traffic>.json``, and a per-layer
 metric is ``benchmark/metrics/<metric>.py``.  Adding a cell, a
-configuration, a traffic mix or a metric adds files and entries and edits
+configuration, a traffic mix, a metric, a family or an optimizer
+(``benchmark/reference/__init__.py``) adds files and entries and edits
 none.
 """
 

@@ -5,7 +5,8 @@ traffic file names the port's preset; the configuration file's
 ``program_extra`` is laid over the preset's ``extra`` (the model and its
 depth).  Before a run the preset's recipe is held against the traffic
 file's ``recipe``, which the reference reads, so the two sides cannot
-drift apart unseen.
+drift apart unseen: the step's keys here, the optimizer's keys and LR
+schedule from the recipe's optimizer module (``PRESET_KEYS``, ``lr``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import dataclasses
 import math
 
 import torch
+
+from .. import reference
 
 
 def experiment(config: dict, traffic: dict):
@@ -28,24 +31,25 @@ def check_recipe(cfg, traffic: dict) -> None:
     from diga_tpu_torch.train.build import make_schedule, make_step_config, wants_target
 
     r, s, t = traffic["recipe"], make_step_config(cfg), cfg.train
+    opt = reference.optimizer(r)
     have = {"num_classes": s.num_classes, "crop_hw": list(s.crop_hw), "beta": s.beta,
             "lambda_seg": s.lambda_seg, "lambda_distil": s.lambda_distil,
             "aux_weight": s.aux_weight, "rgb_input": s.rgb_input,
             "with_sharpness": s.with_sharpness, "tgt_stats_forward": s.tgt_stats_forward,
-            "p_jitter": s.p_jitter, "momentum": t.momentum, "weight_decay": t.weight_decay,
-            "head_lr_mult": t.head_lr_mult,
+            "p_jitter": s.p_jitter, "head_lr_mult": t.head_lr_mult,
             "translator": cfg.stage != "dg" and not cfg.extra.get("no_translator", False),
             "source_batch": sum(x.batch for x in cfg.data.source_streams),
             "target_batch": (sum(x.batch for x in cfg.data.target_streams)
-                             if wants_target(cfg) else 0)}
+                             if wants_target(cfg) else 0),
+            **{k: read(cfg) for k, read in opt.PRESET_KEYS.items()}}
     want = {**r, "crop_hw": list(r["crop_hw"]), "source_batch": traffic["source_batch"],
             "target_batch": traffic["target_batch"]}
-    bad = {k: (v, want[k]) for k, v in have.items() if want.get(k) != v}
+    bad = {k: (v, want.get(k)) for k, v in have.items() if want.get(k) != v}
     if s.photometric != "diga" or s.seg_loss != "ce" or s.fuse_forwards:
         bad["step"] = (f"{s.photometric}/{s.seg_loss}/fuse={s.fuse_forwards}", "diga/ce/False")
     sched = make_schedule(cfg)
     for k in range(4):
-        lr = r["learning_rate"] * math.pow(1.0 - k / r["num_steps"], r["power"])
+        lr = opt.lr(r, k)
         if not math.isclose(sched(k), lr, rel_tol=1e-5):
             bad[f"lr[{k}]"] = (sched(k), lr)
     if bad:

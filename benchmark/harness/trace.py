@@ -1,15 +1,17 @@
 """A traced sub-window: ``torch.profiler`` over a few steps or images, and
 the reductions the per-layer metrics read.
 
-The component attribution is a frozen copy of the program's
+The component attribution is a copy of the program's
 ``diga_tpu_torch/utils/profiling.py`` (``default_component``,
 ``_scopes_of``, ``_launchers``, ``attribute_events``): every device op is
 charged to the scope path of the CPU op that launched it, and an op of the
 backward pass to its forward op's scopes through the autograd sequence
-number.  Busy time is the union of the device ops' intervals, not their
-sum; the traced window runs from the first of the benchmark's own spans
-(``bench_unit``, one around each step or image) to the end of the last
-device op.
+number.  Which scopes are the model's and the optimizer's comes from the
+cell (``Scopes``): the configuration file's ``program_scope`` and the
+optimizer module's ``PROGRAM_SPANS``.  Busy time is the union of the
+device ops' intervals, not their sum; the traced window runs from the
+first of the benchmark's own spans (``bench_unit``, one around each step
+or image) to the end of the last device op.
 """
 
 from __future__ import annotations
@@ -24,15 +26,29 @@ from torch.profiler import ProfilerActivity, profile, record_function
 UNIT_SPAN = "bench_unit"
 
 
-def default_component(p: str, backward: bool) -> str:
+@dataclasses.dataclass(frozen=True)
+class Scopes:
+    """The program's span names of a cell's model and optimizer."""
+    model: tuple[str, ...]
+    optimizer: tuple[str, ...] = ()
+
+    @classmethod
+    def of(cls, config: dict, optimizer=None) -> Scopes:
+        """From the configuration file and, for a train cell, the recipe's
+        optimizer module."""
+        if not config.get("program_scope"):
+            raise ValueError(f"configuration {config.get('name')!r} names no program_scope")
+        return cls(tuple(config["program_scope"]),
+                   tuple(optimizer.PROGRAM_SPANS) if optimizer is not None else ())
+
+
+def default_component(p: str, backward: bool, scopes: Scopes) -> str:
     if "ImgEncoder" in p or "ImgDecoder" in p:
         return "translator_fwd"
-    if "DeepLabV2" in p or "HRNet" in p:
+    if any(key in p for key in scopes.model):
         return "model_bwd" if backward else "model_fwd"
-    for key in ("sgd", "ema", "add_decayed", "trace_update", "apply_updates",
-                "scale_by", "masked", "/update/"):
-        if key in p:
-            return "optimizer_ema"
+    if "ema" in p or any(key in p for key in scopes.optimizer):
+        return "optimizer_ema"
     if "photometric" in p or "crdomix" in p or "hsv" in p:
         return "aug_mix"
     if "distill" in p or "cross_entropy" in p or "log_softmax" in p or "resize" in p:
@@ -116,17 +132,21 @@ def _union(intervals):
     return out
 
 
-def run_traced(unit_fn, n: int, device: torch.device) -> Trace:
+def run_traced(unit_fn, n: int, device: torch.device, scopes: Scopes) -> Trace:
     """``unit_fn(i)`` for i < n under the profiler, each in a ``bench_unit`` span."""
-    from torch.autograd import DeviceType
-
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(n):
             with record_function(UNIT_SPAN):
                 unit_fn(i)
         torch.cuda.synchronize(device)
-    events = prof.events()
+    return reduce_events(prof.events(), n, scopes)
+
+
+def reduce_events(events, n: int, scopes: Scopes) -> Trace:
+    """The ``Trace`` of the profiler's events of ``n`` units."""
+    from torch.autograd import DeviceType
+
     cpu = [e for e in events if e.device_type == DeviceType.CPU and not e.is_async]
     dev = [e for e in events if e.device_type == DeviceType.CUDA and not _is_annotation(e)]
     annotations = [e for e in cpu if _is_annotation(e)]
@@ -155,7 +175,7 @@ def run_traced(unit_fn, n: int, device: torch.device) -> Trace:
         t = launch_at.get(d.id)
         launcher = None if t is None else _innermost(ops, starts, t)
         joined = None if launcher is None else where.get(id(launcher))
-        comp["unmatched" if joined is None else default_component(*joined)] += sec
+        comp["unmatched" if joined is None else default_component(*joined, scopes)] += sec
 
     # idle gaps, named by the innermost host op running when each began
     gaps = defaultdict(float)

@@ -5,8 +5,9 @@ the benchmark's seeded weights into the student, its teacher copy and the
 frozen translator, seeds the dropout generators, makes the traffic, and
 drives the step through its first ``checked_steps`` steps with the
 window's own call and feed, on batches that all differ, reading what the
-comparison needs (each step's loss, the first update from the SGD momentum
-buffer, each leaf's change); then ``warmup_steps`` more.  The window runs
+comparison needs (each step's loss, the first update from the program's
+optimizer state as the recipe's optimizer module reads it, each leaf's
+change); then ``warmup_steps`` more.  The window runs
 the same step on the same state for ``seconds``, closed loop, and ends in
 a device synchronise.  After the window (and the traced sub-window, with
 ``--trace 1``) the peak memory is read, the program's state is freed, and
@@ -39,7 +40,7 @@ class Inputs:
         r = traffic["recipe"]
         self.recipe, self.sd = r, streams(seed)
         self.weights = seeded_state(_meta_shapes(lambda: reference.build_model(config)),
-                                    self.sd["weights"], device)
+                                    self.sd["weights"], device, reference.weight_rule(config))
         self.translator = None
         if r["translator"]:
             self.translator = seeded_state(
@@ -75,6 +76,7 @@ def _norms(tensors) -> list[float]:
 
 def first_steps(state, step, inputs: Inputs, n: int) -> dict:
     """Drive ``step`` through its first ``n`` steps; the program's readings."""
+    opt = reference.optimizer(inputs.recipe)
     named = [(k, p) for k, p in state.student.named_parameters() if p.requires_grad]
     theta0 = [p.detach().clone() for _, p in named]
     stats = [(k, b) for k, b in state.student.named_buffers()
@@ -84,9 +86,9 @@ def first_steps(state, step, inputs: Inputs, n: int) -> dict:
     for i in range(n):
         losses.append(step(state, inputs.batch(i), **inputs.kwargs(i))["loss"])
         if i == 0:
-            bufs = [state.optimizer.state.get(p, {}).get("momentum_buffer") for _, p in named]
-            have = [(k, b) for (k, _), b in zip(named, bufs) if b is not None]
-            first = dict(zip((k for k, _ in have), _norms([b for _, b in have])))
+            ups = [opt.program_first_update(state.optimizer.state.get(p, {})) for _, p in named]
+            have = [(k, u) for (k, _), u in zip(named, ups) if u is not None]
+            first = dict(zip((k for k, _ in have), _norms([u for _, u in have])))
     with torch.no_grad():
         change = _norms([p - p0 for (_, p), p0 in zip(named, theta0)])
         stats_change = _norms([b - b0 for (_, b), b0 in zip(stats, stats0)])
@@ -124,7 +126,7 @@ def kernel_sites(config: dict, traffic: dict) -> dict:
 def run(cell, seed: int, seconds: float, trace: bool, device, t0: float) -> dict:
     from .metrics import Context, elem_bytes, read_all
     from .peaks import for_device
-    from .trace import run_traced
+    from .trace import Scopes, run_traced
 
     tr = cell.traffic
     n_check = tr["checked_steps"]
@@ -158,7 +160,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float) -> dict
     if trace:
         base = i
         t = run_traced(lambda j: step(state, inputs.batch(base + j), **inputs.kwargs(base + j)),
-                       tr["trace_steps"], device)
+                       tr["trace_steps"], device,
+                       Scopes.of(cell.config, reference.optimizer(tr["recipe"])))
         ctx = Context(trace=t, units_per_s=steps_per_s,
                       unit_flops=counts.train_step_flops(cell.config, tr),
                       peaks=for_device(torch.cuda.get_device_name(device)),

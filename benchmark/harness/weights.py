@@ -6,13 +6,15 @@ linear weights He-scaled (std sqrt(2 / fan_in)), biases and BN running
 means N(0, 0.1), BN running variances U(0.5, 1.5), the last BN scale of
 each residual branch U(0.1, 0.3) so that activations stay bounded through
 the residual chains, other norm scales U(0.8, 1.2).  The rule is that of
-``chip_smoke.py::seeded_state_dict``.  Leaves are made in f32, the type
-the parameters are kept in.
+``chip_smoke.py::seeded_state_dict``; a family module's ``weight_rule``
+(``benchmark/reference/__init__.py``) comes before it for the leaves it
+names.  Leaves are made in f32, the type the parameters are kept in.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 
@@ -30,11 +32,14 @@ def _rule(key: str, shape: tuple) -> tuple[str, float, float]:
     return "uniform", 0.8, 1.2
 
 
-def seeded_state(shapes: dict[str, tuple], seed: int, device) -> dict[str, torch.Tensor]:
-    """A state dict for ``shapes`` (key -> shape, in state_dict order)."""
+def seeded_state(shapes: dict[str, tuple], seed: int, device,
+                 rule: Callable[[str, tuple], tuple | None] | None = None
+                 ) -> dict[str, torch.Tensor]:
+    """A state dict for ``shapes`` (key -> shape, in state_dict order);
+    ``rule(key, shape)``, where given and not None, before ``_rule``."""
     device = torch.device(device)
     gen = torch.Generator(device).manual_seed(seed)
-    plan = {k: _rule(k, tuple(s)) for k, s in shapes.items()
+    plan = {k: (rule and rule(k, tuple(s))) or _rule(k, tuple(s)) for k, s in shapes.items()
             if not k.endswith("num_batches_tracked")}
     out = {}
     for draw in ("normal", "uniform"):

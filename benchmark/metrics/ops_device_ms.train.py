@@ -1,5 +1,6 @@
 """Device ms a step charged to aug_mix + loss_resize + optimizer_ema + misc
-(ops/photometric.py, mixing.py, losses.py, distill.py, ema.py, the SGD)."""
+(ops/photometric.py, mixing.py, losses.py, distill.py, ema.py, and the
+optimizer: the spans its module names, ``PROGRAM_SPANS``)."""
 
 from benchmark.harness.metrics import Context, component_ms
 

@@ -116,6 +116,10 @@ class DeepLabV2(nn.Module):
     def channel_dropout(self) -> ChannelDropout:
         return self.final.head[0]
 
+    def set_generator(self, generator: torch.Generator | None) -> None:
+        """The channel dropout's: the one draw of a train-mode forward."""
+        self.channel_dropout.generator = generator
+
     def backbone_forward(self, x: torch.Tensor):
         shallow = self.layer2(self.layer1(self.layer0(x)))
         return shallow, self.layer4(self.layer3(shallow))

@@ -229,6 +229,10 @@ class HRNetOCR(nn.Module):
     def channel_dropout(self) -> ChannelDropout:
         return self.ocrnet.dropout
 
+    def set_generator(self, generator: torch.Generator | None) -> None:
+        """The channel dropout's: the one draw of a train-mode forward."""
+        self.channel_dropout.generator = generator
+
     def forward(self, x: torch.Tensor):
         feats = self.hrnet(x)
         aux, logits, aug = self.ocrnet(feats)

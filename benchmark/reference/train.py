@@ -15,12 +15,13 @@ Written from DiGA's ``train_DiGA_DG.py`` (:188-275),
      soft-region logits) + lambda_distil * the symmetric distillation
      (+ aux_weight * the same on the soft-region logits); backward;
   6. the target-stats forward: the student's BN statistics on the target;
-  7. SGD with momentum, weight decay added to the gradient, the head's
-     parameters at ``head_lr_mult`` x the poly-scheduled LR.
+  7. the recipe's optimizer (``reference/optimizers/<name>.py``): its update
+     of each leaf at its scheduled LR, the head's parameters at
+     ``head_lr_mult`` x it.
 
 Each run returns the numbers the benchmark compares with the program: the
-loss of every step, each trainable leaf's first gradient as the optimizer
-gets it (gradient + weight decay x parameter), each leaf's raw first
+loss of every step, each trainable leaf's first update as the optimizer
+gets it (the optimizer module's ``first_update``), each leaf's raw first
 gradient (for the rule that leaves out leaves with no gradient), and after
 the last step each leaf's change and each BN statistic's change.
 """
@@ -31,7 +32,7 @@ import copy
 
 import torch
 
-from . import ops
+from . import ops, optimizer as optimizer_of
 from .lowp import precision_scope
 
 
@@ -61,20 +62,21 @@ def run_steps(student: torch.nn.Module, translator: torch.nn.Module | None, reci
     or ``fp8``, the control (``lowp.py``).
     """
     r = recipe
+    opt = optimizer_of(r)
     device = next(student.parameters()).device
-    student.channel_dropout.generator = None
+    student.set_generator(None)
     teacher = copy.deepcopy(student).requires_grad_(False)
     student.train()
     teacher.train()
-    student.channel_dropout.generator = torch.Generator(device).manual_seed(dropout_seeds[0])
-    teacher.channel_dropout.generator = torch.Generator(device).manual_seed(dropout_seeds[1])
+    student.set_generator(torch.Generator(device).manual_seed(dropout_seeds[0]))
+    teacher.set_generator(torch.Generator(device).manual_seed(dropout_seeds[1]))
     named = [(n, p) for n, p in student.named_parameters() if p.requires_grad]
     theta0 = {n: p.detach().clone() for n, p in named}
     stats0 = {n: b.detach().clone() for n, b in student.named_buffers()
               if n.endswith(("running_mean", "running_var"))}
     mult = {n: r["head_lr_mult"] if student.head_param(n) else 1.0 for n, _ in named}
     aux = r["aux_weight"] > 0
-    momentum: dict[str, torch.Tensor] = {}
+    leaf_state: dict[str, dict] = {n: {} for n, _ in named}
     out = {"loss": [], "first_update": {}, "first_grad": {}}
     with precision_scope(precision, [student, teacher] + ([translator] if translator else [])) as amp:
         for k, (batch, draw) in enumerate(zip(batches, draws)):
@@ -106,17 +108,14 @@ def run_steps(student: torch.nn.Module, translator: torch.nn.Module | None, reci
             if r["tgt_stats_forward"]:
                 with torch.no_grad(), amp():
                     student.stats_forward(_nchw(batch["t_img"].float(), r["rgb_input"]))
-            lr = ops.poly_lr(r["learning_rate"], r["num_steps"], r["power"], k)
+            lr = opt.lr(r, k)
             with torch.no_grad():
                 for n, p in named:
-                    d = p.grad + r["weight_decay"] * p
                     if k == 0:
-                        momentum[n] = d.clone()
-                        out["first_update"][n] = float(d.norm())
                         out["first_grad"][n] = float(p.grad.norm())
-                    else:
-                        momentum[n].mul_(r["momentum"]).add_(d)
-                    p.add_(momentum[n], alpha=-lr * mult[n])
+                    opt.update(n, p, leaf_state[n], k, lr * mult[n], r)
+                    if k == 0:
+                        out["first_update"][n] = float(opt.first_update(leaf_state[n]).norm())
                     p.grad = None
             out["loss"].append(float(total.detach()))
     with torch.no_grad():
