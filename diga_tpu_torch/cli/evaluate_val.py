@@ -73,7 +73,11 @@ def _eval_sets(cfg) -> dict:
 
 def check_spatial(p, args, cfg) -> None:
     """JAX's refusals of a height-sharded eval (``diga_tpu/cli/evaluate_val.py:
-    72-78``), and the height its ``device_put`` would refuse."""
+    72-78``), the height its ``device_put`` would refuse, and MiT, whose
+    attention runs over the whole image and has no sharded form."""
+    if cfg.extra.get("model") == "mit_daformer":
+        p.error("--shard spatial: MiTDAFormer's attention spans the whole image; it has no "
+                "height-sharded form (use --shard batch)")
     if args.n_devices is None and not args.multihost:
         p.error("--shard spatial requires --n_devices or --multihost (no world was formed, "
                 "so the evaluator would silently run unsharded)")

@@ -72,6 +72,12 @@ class TrainConfig:
     lambda_distil: float = 0.5                # warm_up.py:93
     seg_loss: str = "ce"                      # 'ce' | 'ohem'
     lr_warmup: int = 0                        # poly warmup steps (0 = plain poly)
+    # None: DiGA's warm-up from 0 (``poly_warmup_schedule``); a ratio: mmcv's
+    # linear warm-up over the poly decay, from ``ratio`` x the LR
+    lr_warmup_ratio: float | None = None
+    optimizer: str = "sgd"                    # 'sgd' | 'adamw' (train/optim.py)
+    adam_betas: tuple[float, float] = (0.9, 0.999)
+    adam_eps: float = 1e-8
     head_lr_mult: float = 10.0                # seg_model_noaux.py:319-321
     seed: int = 0
     # mixed precision: params fp32, compute bf16; fp32 for strict parity runs
@@ -279,6 +285,25 @@ _register(ExperimentConfig(
             "mapillary": {"out_hw": (1080, 1920), "ds_hw": (540, 960)},
         }
     },
+))
+
+# --- SegFormer MiT-B5 with DAFormer's head on the GTA5 -> Cityscapes warm-up
+# DAFormer (arXiv:2111.14887) configs/_base_/schedules/adamw.py and
+# poly10warm.py, daformer_sepaspp_mitb5.py: AdamW lr 6e-5, betas (0.9,
+# 0.999), weight decay 0.01 (0 on the backbone's norms), head lr x10; poly
+# power 1.0 over 40k steps after mmcv's 1500-step linear warm-up from 1e-6
+# x; RGB input.  Batch, crop, translator, CrDoMix, distillation and EMA as
+# gta2city_warmup.
+_register(ExperimentConfig(
+    name="gta2city_warmup_mitb5",
+    stage="warmup",
+    data=DataConfig(),
+    train=TrainConfig(
+        remat=False, optimizer="adamw", learning_rate=6e-5, weight_decay=0.01,
+        num_steps=40_000, power=1.0, lr_warmup=1500, lr_warmup_ratio=1e-6,
+    ),
+    eval=EvalConfig(),
+    extra={"model": "mit_daformer", "mit_arch": "b5", "rgb_input": True},
 ))
 
 # --- Semi-supervised Cityscapes ----------------------------------------------

@@ -1,14 +1,18 @@
 """Assemble models, optimizer, state and the step from a preset config.
 
 Counterpart of ``diga_tpu/train/build.py``: ``make_model`` (:31-58: DeepLabV2,
-or HRNet-W48/W32+OCR for the semi-supervised presets),
+or HRNet-W48/W32+OCR for the semi-supervised presets; the port adds
+SegFormer's MiT-B5 with DAFormer's head, ``model=mit_daformer``, which the
+JAX package does not have),
 ``make_schedule``/``make_step_config``/``wants_target`` (:61-108), the
 translator helpers (:111-140), ``build_experiment`` (:143-279) for the
 warm-up, DG and self-training stages, and ``export_state_role_keyed``
 (:289-313); previous-stage weights come from role-keyed ``.pth`` files,
 a reference ResNet-101 ``.pth`` (DeepLab) or an ImageNet hrnetv2 ``.pth``
-(HRNet) initialises the backbone (``--pretrained_backbone``, :202-218),
-and the self-training centroids
+(HRNet) initialises the backbone (``--pretrained_backbone``, :202-218;
+MiT has no such file in the repository and is refused), the optimizer is
+the one the preset names (``train/optim.py::make_optimizer``: SGD, or
+AdamW for MiT), and the self-training centroids
 come from ``calc_centroids``' output (reference stage chaining).  ``build_eval`` is
 the frozen eval model of ``evaluate_val``.
 
@@ -30,6 +34,7 @@ import torch.nn as nn
 from ..configs.presets import ExperimentConfig
 from ..models.convert import (hrnet_imagenet_state_dict, load_torch_state_dict,
                               pretrained_backbone_state_dict)
+from ..models import mit_daformer
 from ..models.hrnet_ocr import ARCHS, HRNetOCR
 from ..models.resnet_deeplab import DeepLabV2
 from ..models.translator import ImgDecoder, ImgEncoder
@@ -38,8 +43,8 @@ from ..parallel import dist
 from ..parallel.sync_bn import convert_sync_bn
 from ..utils.checkpoint import export_role_keyed, load_role_keyed
 from ..utils.profiling import span
-from .optim import sgd_grouped
-from .schedules import poly_schedule, poly_warmup_schedule
+from .optim import make_optimizer
+from .schedules import poly_linear_warmup_schedule, poly_schedule, poly_warmup_schedule
 from .state import SegModel, SegTrainState, create_seg_state, reference_state_dict
 from .steps import StepConfig, build_dg_step, build_selftrain_step, build_warmup_step
 
@@ -65,11 +70,17 @@ _HRNET_TPU_KNOBS = ("hrnet_pad", "remat_policy", "remat")
 
 
 def check_model_config(cfg: ExperimentConfig) -> None:
-    """Raise on a model choice the port does not build: an unknown model or
-    HRNet arch, or a TPU knob of the JAX HRNet."""
+    """Raise on a model choice the port does not build: an unknown model,
+    HRNet or MiT arch, or a TPU knob of the JAX HRNet."""
     kind = cfg.extra.get("model", "deeplab")
-    if kind not in ("deeplab", "hrnet_ocr"):
-        raise ValueError(f"--extra model={kind!r}: expected 'deeplab' or 'hrnet_ocr'")
+    if kind not in ("deeplab", "hrnet_ocr", "mit_daformer"):
+        raise ValueError(f"--extra model={kind!r}: expected 'deeplab', 'hrnet_ocr' or "
+                         "'mit_daformer'")
+    if kind == "mit_daformer":
+        arch = cfg.extra.get("mit_arch", "b5")
+        if arch not in mit_daformer.ARCHS:
+            raise ValueError(f"--extra mit_arch={arch!r}: expected one of "
+                             f"{sorted(mit_daformer.ARCHS)}")
     if kind == "hrnet_ocr":
         for key in _HRNET_TPU_KNOBS:
             if cfg.extra.get(key):
@@ -83,12 +94,18 @@ def check_model_config(cfg: ExperimentConfig) -> None:
 
 def make_model(cfg: ExperimentConfig) -> SegModel:
     """The preset's model at its class count: DeepLabV2 (``extra['layers']``
-    for tiny depths), or HRNetOCR for ``extra['model'] == 'hrnet_ocr'``
-    (``extra['hrnet_arch']`` ``w48`` or ``w32``)."""
+    for tiny depths), HRNetOCR for ``extra['model'] == 'hrnet_ocr'``
+    (``extra['hrnet_arch']`` ``w48`` or ``w32``), or MiTDAFormer for
+    ``extra['model'] == 'mit_daformer'`` (``extra['mit_arch']``, ``b5``)."""
     check_model_config(cfg)
-    if cfg.extra.get("model", "deeplab") == "hrnet_ocr":
+    kind = cfg.extra.get("model", "deeplab")
+    if kind == "hrnet_ocr":
         return HRNetOCR(num_classes=cfg.train.num_classes,
                         arch=ARCHS[cfg.extra.get("hrnet_arch", "w48")])
+    if kind == "mit_daformer":
+        return mit_daformer.MiTDAFormer(
+            num_classes=cfg.train.num_classes,
+            arch=mit_daformer.ARCHS[cfg.extra.get("mit_arch", "b5")])
     layers = tuple(cfg.extra.get("layers", (3, 4, 23, 3)))
     return DeepLabV2(num_classes=cfg.train.num_classes, layers=layers)
 
@@ -148,6 +165,9 @@ def build_eval(cfg: ExperimentConfig, weight_dir: str | None,
 
 def make_schedule(cfg: ExperimentConfig) -> Callable[[int], float]:
     t = cfg.train
+    if t.lr_warmup > 0 and t.lr_warmup_ratio is not None:
+        return poly_linear_warmup_schedule(t.learning_rate, t.num_steps, t.lr_warmup,
+                                           t.lr_warmup_ratio, t.power)
     if t.lr_warmup > 0:
         return poly_warmup_schedule(t.learning_rate, t.num_steps, t.lr_warmup, t.power)
     return poly_schedule(t.learning_rate, t.num_steps, t.power)
@@ -265,6 +285,10 @@ def build_experiment(cfg: ExperimentConfig, device: torch.device,
     with seeded(cfg.train.seed):
         student = make_model(cfg)
     if pretrained_backbone is not None:
+        if isinstance(student, mit_daformer.MiTDAFormer):
+            raise NotImplementedError(
+                "--pretrained_backbone: the port has no MiT ImageNet weights to lay over "
+                "MiTDAFormer's backbone (SegFormer's mit_b5.pth is not in the repository)")
         if not os.path.exists(pretrained_backbone):
             raise FileNotFoundError(f"--pretrained_backbone {pretrained_backbone!r} does not exist")
         lay_over = (hrnet_imagenet_state_dict if isinstance(student, HRNetOCR)
@@ -286,8 +310,7 @@ def build_experiment(cfg: ExperimentConfig, device: torch.device,
         centroids = Centroids(centroids.vectors.to(device), centroids.counts.to(device))
         dist.broadcast_tensors([centroids.vectors, centroids.counts])
     t = cfg.train
-    optimizer = sgd_grouped(student, t.learning_rate, t.momentum, t.weight_decay, t.head_lr_mult)
-    state = create_seg_state(student, optimizer, t.seed, translator, centroids)
+    state = create_seg_state(student, make_optimizer(student, t), t.seed, translator, centroids)
     _use_benchmark_convs(device)
     if cfg.stage == "selftrain":
         build_step = build_selftrain_step

@@ -1,8 +1,9 @@
 """CUDA graphs of the segmentation models' calls in a train step.
 
-A train step calls its segmentation model (``DeepLabV2`` or ``HRNetOCR``)
-at fixed shapes: the student's forward on [source; view] with its
-backward, the EMA teacher's forward under ``no_grad`` and the student's
+A train step calls its segmentation model (``DeepLabV2``, ``HRNetOCR`` or
+``MiTDAFormer``; any module) at fixed shapes: the student's forward on
+[source; view] with its backward, the EMA teacher's forward under
+``no_grad`` and the student's
 ``bn_stats_forward`` on the target batch (self-training: the forwards of
 its own batches).  On the card each call is thousands of small kernels,
 and launching them one by one from the host is what holds a step back
@@ -14,7 +15,9 @@ Keys and lifetime.  A graph is keyed by the module, the method
 (``forward``, ``bn_stats_forward``), whether the outputs take gradients
 (grad mode on and a parameter that requires one), the module's training
 flag, the autocast state, the input's shape and dtype, and the
-generators the module's submodules hold (``ChannelDropout.generator``).
+generators the module's submodules hold (``ChannelDropout.generator``;
+MiT's stochastic depth draws from its dropout's, so that generator is
+registered once).
 A key's calls run eagerly until ``EAGER_CALLS`` of them have finished,
 a forward with gradients once its backward has run: they are its warm-up
 (cuDNN's autotuning at the shape, of the backward's convolutions too, the
@@ -55,7 +58,7 @@ copies the incoming gradients into the graph's static gradient inputs
 graph, which computes the parameters' gradients by
 ``torch.autograd.grad``.  It returns aliases of those, which the
 parameters' gradient accumulators take as their ``.grad``: the tensors
-``torch.optim.SGD`` reads.
+the optimizer (``torch.optim.SGD``, ``AdamW``) reads.
 
 Where it engages.  Only where the backend serves the input
 (``CudaGraphs``: a CUDA tensor, outside another capture), no process

@@ -11,8 +11,9 @@ selections, student dropout, teacher dropout).
 ``state_dict``/``load_state_dict`` carry all of it for the full-state
 checkpoints (``utils/checkpoint.py``): the student and teacher (BN
 buffers included) and the frozen translator as reference role
-state_dicts, and the step, the SGD momentum, the centroids and each
-generator's state.  A restored state continues bit for bit.
+state_dicts, and the step, the optimizer's state (SGD's momentum, or
+AdamW's two moments and step counts), the centroids and each generator's
+state.  A restored state continues bit for bit.
 """
 
 from __future__ import annotations
@@ -24,10 +25,14 @@ import torch
 import torch.nn as nn
 
 from ..models.hrnet_ocr import HRNetOCR
+from ..models.mit_daformer import MiTDAFormer
 from ..models.resnet_deeplab import DeepLabV2
 from ..ops.prototypes import Centroids
 
-SegModel = DeepLabV2 | HRNetOCR
+# every model has ``forward(x) -> (shallow, deep_or_aux, logits, feat)``,
+# ``bn_stats_forward``, ``channel_dropout`` (the holder of its draws'
+# generator), ``compute_dtype`` and ``set_compute_dtype``
+SegModel = DeepLabV2 | HRNetOCR | MiTDAFormer
 
 
 @dataclasses.dataclass
@@ -89,7 +94,8 @@ def reference_state_dict(model: nn.Module) -> dict[str, torch.Tensor]:
 
 
 def attach_dropout_generators(state: "SegTrainState") -> None:
-    """The head dropouts draw from the state's own generators."""
+    """Each model's random draws (the head dropout's; MiT's stochastic depth
+    too) come from the state's own generators."""
     state.student.channel_dropout.generator = state.gen_student_dropout
     state.teacher.channel_dropout.generator = state.gen_teacher_dropout
 

@@ -27,7 +27,7 @@ The DG and warm-up steps run, in the reference order:
      statistics update (``steps.py:169-175,246-252``: JAX runs the whole
      model, whose outputs feed nothing; every BN it updates is in
      ``bn_stats_forward``);
-  7. the SGD step at ``schedule(step)``.
+  7. the optimizer's step at ``schedule(step)`` (SGD, or AdamW for MiT).
 The self-training step is laid out in ``build_selftrain_step``.  With
 ``rgb_input`` every model forward sees the image with its channels flipped
 BGR->RGB (``_student_apply``, :104-117); the photometric chain, CrDoMix
@@ -38,12 +38,14 @@ stay f32.  The metrics stay device tensors until they are logged.
 Every part of a step runs in a scope (``scope``, the port's
 ``utils/profiling.py::span``: a ``torch.profiler.record_function``, kept
 as a host span while a recording is open), inside one ``train_step``
-scope: the model forwards by class name (``DeepLabV2``, ``HRNetOCR``),
+scope: the model forwards by class name (``DeepLabV2``, ``HRNetOCR``,
+``MiTDAFormer``),
 the frozen translator by module (``ImgEncoder``, ``ImgDecoder``),
 ``photometric``, ``crdomix`` (DACS as ``crdomix/dacs``), ``prototypes``,
 ``cross_entropy`` (OHEM and the aux term), ``distill``, ``resize``,
-``ema`` and ``sgd``: the names
-``utils/profiling.py::default_component``, the JAX package's rule, reads.
+``ema`` and the optimizer's step, named after it (``sgd``, ``adamw``):
+the names ``utils/profiling.py::default_component``, the JAX package's
+rule, reads.
 A scope only marks a span of the profiler's trace and of a recording: it
 computes nothing and synchronises nothing.
 
@@ -56,7 +58,7 @@ a process group it is the plain call.
 Under a process group (``parallel/dist.py``) the same order of operations
 runs on every rank's share of the global batch: the BNs are
 ``SyncBatchNorm2d`` (``train/build.py``), the gradients are averaged over
-the ranks before the SGD step, the centroid scan runs over every rank's
+the ranks before the optimizer's step, the centroid scan runs over every rank's
 rows in global order, OHEM selects over the global batch, every per-image
 draw (photometric, CrDoMix/DACS selections, channel dropout) is made at
 the global batch's shape and sliced, and the returned metrics are the
@@ -212,8 +214,9 @@ def _ema(state: SegTrainState) -> None:
         ema_update(state.teacher, state.student, ema_alpha(state.step, EMA_CAP))
 
 
-def _sgd_step(state: SegTrainState, schedule: Callable[[int], float]) -> None:
-    with scope("sgd"):
+def _optimizer_step(state: SegTrainState, schedule: Callable[[int], float]) -> None:
+    """The optimizer's step, in a span named after its class (``sgd``, ``adamw``)."""
+    with scope(type(state.optimizer).__name__.lower()):
         dist.all_reduce_grads(p for g in state.optimizer.param_groups for p in g["params"])
         set_lr(state.optimizer, schedule(state.step))
         state.optimizer.step()
@@ -248,7 +251,7 @@ def _distill_and_update(cfg: StepConfig, schedule, calls: ModelCalls, state: Seg
     if cfg.tgt_stats_forward:
         with torch.no_grad(), amp, scope(type(state.student).__name__):
             calls.bn_stats_forward(state.student, _model_input(cfg, t_img))
-    _sgd_step(state, schedule)
+    _optimizer_step(state, schedule)
     return dist.mean_metrics({"loss": total.detach(), "loss_semseg": ce.detach(),
                               "loss_distil": distil.detach()})
 
@@ -340,7 +343,7 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float],
          DACS image) + lambda_distil x
          the distillation against the teacher's [source; mix] logits, with
          no aux term whatever ``aux_weight`` says (JAX's has none, :353-380);
-     10. the SGD step.
+     10. the optimizer's step.
     A fused forward draws its dropout masks once, from the model's own
     generator, as the JAX step draws one key per fused forward.
     """
@@ -417,7 +420,7 @@ def build_selftrain_step(cfg: StepConfig, schedule: Callable[[int], float],
                 distil = D.distillation_loss(st_up, s_up, DISTIL_SCALE)
             total = cfg.lambda_seg * (ce + ce_cross) + cfg.lambda_distil * distil
         total.backward()
-        _sgd_step(state, schedule)
+        _optimizer_step(state, schedule)
         state.centroids = cents
         return dist.mean_metrics({
             "loss": total.detach(), "loss_semseg": ce.detach(),

@@ -186,13 +186,15 @@ def default_component(scope_path: str, backward: bool) -> str:
     """Coarse component of an op from its scope path (the scopes outermost
     first, joined by "/"), by the JAX package's rule and order
     (``diga_tpu/utils/profiling.py:183-201``); ``backward`` takes the place
-    of JAX's ``"transpose(" in path``."""
+    of JAX's ``"transpose(" in path``.  The port's MiT-B5 (``MiTDAFormer``)
+    and its ``adamw`` span, which JAX does not have, join the model and the
+    optimizer."""
     p = scope_path
     if "ImgEncoder" in p or "ImgDecoder" in p:
         return "translator_fwd"  # as in JAX, the translator's backward too
-    if "DeepLabV2" in p or "HRNet" in p:
+    if "DeepLabV2" in p or "HRNet" in p or "MiTDAFormer" in p:
         return "model_bwd" if backward else "model_fwd"
-    for key in ("sgd", "ema", "add_decayed", "trace_update", "apply_updates",
+    for key in ("sgd", "adamw", "ema", "add_decayed", "trace_update", "apply_updates",
                 "scale_by", "masked", "/update/"):
         if key in p:
             return "optimizer_ema"
