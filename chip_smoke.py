@@ -48,7 +48,15 @@ Phases, any failure of which exits non-zero:
      logits (x10) at (6, 512, 896, 19) in
      bf16.  The loss at 1e-5 relative, the gradient within 1e-5 x max|ds|
      in f32 and one bf16 ulp in bf16, no teacher gradient, two runs bitwise
-     equal
+     equal.  The depthwise 3x3 kernels of MiT-B5's sep-ASPP head (D1a: the
+     forward, and the input gradient on the same kernel; D1b: the weight
+     gradient) against their plain versions at the head's sites, training's
+     (6|3, 128, 224, 1024) in f32 and bf16 and the eval's (1, 256, 512,
+     1024), (1, 128, 256, 1024) in bf16, at dilations 6, 12 and 18, and at
+     the edges of the walk: a map smaller than the halo, one channel vector,
+     two channel slices with a ragged second, a row of 25 outputs a residue;
+     within 1e-5 of the largest output (of Σ|dy·x| for the weight gradient),
+     one bf16 ulp more in bf16, three runs bitwise equal
   4. tiny-depth model on the card against the same model on the CPU, f32,
      TF32 off: eval logits within 1e-3 of the CPU logits' largest
      magnitude; 3 warm-up, 3 DG and 3 self-training steps with the same
@@ -196,15 +204,20 @@ Phases, any failure of which exits non-zero:
      against their byte bounds, plain versions and nearest library calls
      (``torch.addcmul`` for B2b, ``torch.var_mean`` for B2a), with the
      kernels' launch plans; B2b alone (stream order) and the whole
-     ``group_norm`` (the pair) per site; then the ``kernels`` JSON line, the
-     card line and the result line
+     ``group_norm`` (the pair) per site; D1a (forward and input gradient)
+     and D1b at training's six depthwise sites, beside their byte bounds,
+     their plain versions and, as yardsticks the port never calls, cuDNN's
+     call (``cudnn.benchmark`` on) and ATen's depthwise kernels (cuDNN
+     off); then the ``kernels`` JSON line, the card line and the result
+     line
 
 Every CLI run counts the launches of the port's kernels that the card ran
 (CUPTI's kernel records, ``utils/profiling.py::device_launches``: a train path's model calls
 replay as CUDA graphs, which launch their kernels without the wrappers;
 phase 5's evaluate_val, ``dryrun_multichip`` and the height-sharded
 evals, which replay no graph, read the wrappers' tallies), and requires
-per run (B1a, B1b, B2a, B2b):
+per run no launch of D1a or D1b (no path here builds MiT-B5) and of
+(B1a, B1b, B2a, B2b):
 evaluate_val (2 images) 0, 0, 24, 24; train_warm_up (3 steps) 3, 3, 18,
 18; pseudolabel_generator (2 images) 0, 0, 24, 24; calc_centroids (2
 images) 0, 0, 12, 12; train_self_training (3 steps) 3, 3, 36, 36;
@@ -284,6 +297,7 @@ from diga_tpu_torch.models import translator as translator_module
 from diga_tpu_torch.models.translator import ImgDecoder, ImgEncoder
 from diga_tpu_torch.models.vgg import VGG19Features
 from diga_tpu_torch.ops import distill as D
+from diga_tpu_torch.ops import depthwise as DW
 from diga_tpu_torch.ops import group_norm as G
 from diga_tpu_torch.ops import mixing, native
 from diga_tpu_torch.ops import photometric as P
@@ -375,6 +389,20 @@ DISTILL_CHECKS = [  # (shape, dtypes, logit scale, base pointer offset in elemen
     ((2, 8, 16, 32), BOTH, 3.0, 1),  # base pointer 1 element past 16-byte alignment
     (DISTILL_SHAPE, (torch.bfloat16,), 30.0, 0),  # peaky logits (x10)
 ]
+# MiT-B5's sep-ASPP depthwise convs (NHWC shape, dilation): training's
+# teacher and student at batch 6 and the target statistics at batch 3, and
+# the two-scale eval's batch 1 at both scales of a 1024x2048 image
+DEPTHWISE_DILATIONS = (6, 12, 18)
+DEPTHWISE_TRAIN_SHAPES = [(6, 128, 224, 1024), (3, 128, 224, 1024)]
+DEPTHWISE_EVAL_SHAPES = [(1, 256, 512, 1024), (1, 128, 256, 1024)]
+DEPTHWISE_CHECKS = [  # (NHWC shape, dilation, dtypes)
+    *((s, d, BOTH) for s in DEPTHWISE_TRAIN_SHAPES for d in DEPTHWISE_DILATIONS),
+    *((s, d, (torch.bfloat16,)) for s in DEPTHWISE_EVAL_SHAPES for d in DEPTHWISE_DILATIONS),
+    ((2, 9, 13, 40), 18, BOTH),  # smaller than the halo, ragged, 5 bf16 vectors
+    ((1, 5, 7, 8), 6, BOTH),  # one bf16 vector of channels
+    ((2, 17, 97, 1032), 1, BOTH),  # two channel slices, the second ragged; 4 runs a row
+    ((1, 3, 300, 64), 12, BOTH),  # a wide row: 25 outputs a residue
+]
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 PRESET = "gta2city_warmup"
 SELFTRAIN_PRESET = "gta2city_selftrain"
@@ -449,13 +477,25 @@ TPU_KERNELS = {  # name: (id, source, the TPU kernel it replaces)
 }
 
 
+# kernels of the port that replace no TPU kernel (diga_tpu leaves convolutions
+# to XLA): name: (id, source, what they serve); no path of this script builds
+# MiT-B5, so phase 3 checks and phase 9 times them alone
+PORT_ONLY_KERNELS = {
+    "depthwise_fwd": ("D1a", "diga_tpu_torch/csrc/depthwise.cu",
+                      "MiT-B5's sep-ASPP depthwise 3x3 convs and their input gradients"),
+    "depthwise_wgrad": ("D1b", "diga_tpu_torch/csrc/depthwise.cu",
+                        "the weight gradients of MiT-B5's sep-ASPP depthwise 3x3 convs"),
+}
+
+
 def launches() -> dict:
-    return {**G.launches, **D.launches}
+    return {**G.launches, **D.launches, **DW.launches}
 
 
 def reset_launches() -> None:
     G.reset_launches()
     D.reset_launches()
+    DW.reset_launches()
 
 
 class SmokeFailure(RuntimeError):
@@ -706,7 +746,7 @@ def phase_main_path(work: str) -> tuple[dict, dict]:
     print(f"main path: evaluate_val {N_IMAGES} images in {time.perf_counter() - t0:.1f} s "
           f"(model build and first-call set-up included); launches={counts}", flush=True)
     gn = N_IMAGES * 2 * 6  # images x scales x ASPP GroupNorm sites
-    want = {"group_norm_stats": gn, "group_norm_apply": gn, "distill_loss": 0, "distill_grad": 0}
+    want = kernel_counts(0, gn)
     require(counts == want, f"kernel launches on the eval path {counts}, expected {want}")
     scores = results.get("cityscapes", {})
     require({"overall_acc", "mean_acc", "fwavacc", "mean_iou"} <= set(scores),
@@ -1001,6 +1041,73 @@ def phase_distill_vs_plain() -> dict:
                 errs = {"distill_loss": max(errs["distill_loss"], e_loss),
                         "distill_grad": max(errs["distill_grad"], float(diff.max()))}
             del t, s, loss, ds, ref, ref_ds, tt, st
+    return errs
+
+
+def depthwise_inputs(shape, dtype, seed, device="cuda"):
+    """Seeded map and incoming gradient, NHWC ``shape`` (b, h, w, c) as
+    channels_last NCHW, and a (c, 1, 3, 3) weight."""
+    b, h, w, c = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, h, w, c), generator=gen, device=device).to(dtype).permute(0, 3, 1, 2)
+    dy = torch.randn((b, h, w, c), generator=gen, device=device).to(dtype).permute(0, 3, 1, 2)
+    wt = (torch.randn((c, 1, 3, 3), generator=gen, device=device) / 3).to(dtype)
+    return x, wt, dy
+
+
+def depthwise_plan(shape, d: int, dtype):
+    """The kernels' launch plan at a site."""
+    return DW.launch_plan(shape, d, torch.empty((), dtype=dtype).element_size(),
+                          native.sm_count(0))
+
+
+def phase_depthwise_vs_plain() -> dict:
+    """The head's depthwise kernels against their plain versions at the
+    paths' sites and the edges of the walk: the forward and the input
+    gradient (the same kernel, weights turned) within 1e-5 of the largest
+    output, and in bf16 one ulp more (f32 sums in another order, rounded
+    once); the weight gradient within 1e-5 of Σ|dy·x| (and one bf16 ulp);
+    three calls bitwise equal.  Returns each kernel's largest |kernel -
+    plain| at the training sites in bf16."""
+    errs = {"depthwise_fwd": 0.0, "depthwise_wgrad": 0.0}
+    sms = native.sm_count(0)
+    for i, (shape, d, dtypes) in enumerate(DEPTHWISE_CHECKS):
+        for dtype in dtypes:
+            bf16 = dtype == torch.bfloat16
+            x, wt, dy = depthwise_inputs(shape, dtype, seed=400 + i)
+            ys = [DW.depthwise_conv3x3_kernel(x, wt, d) for _ in range(3)]
+            dxs = [DW.depthwise_conv3x3_kernel(dy, wt, d, rotate=True) for _ in range(3)]
+            dws = [DW.depthwise_wgrad_kernel(x, dy, d) for _ in range(3)]
+            torch.cuda.synchronize()
+            tag = f"shape={shape} d={d} dtype={str(dtype).split('.')[-1]}"
+            require(all(torch.equal(o[0], o[k]) for o in (ys, dxs, dws) for k in (1, 2)),
+                    f"depthwise kernels differ between three runs at {tag}")
+            found = {}
+            for name, got, want in (
+                    ("fwd", ys[0], DW.depthwise_conv3x3_plain(x, wt, d)),
+                    ("dgrad", dxs[0], DW.depthwise_conv3x3_plain(dy, wt, d, rotate=True))):
+                require(got.is_contiguous(memory_format=torch.channels_last)
+                        and got.dtype == dtype, f"depthwise {name} layout/dtype at {tag}")
+                err = (got.float() - want.float()).abs()
+                tol = 1e-5 * want.float().abs().max() + (bf16_ulp(want) if bf16 else 0.0)
+                require(bool((err <= tol).all()),
+                        f"depthwise {name} off at {tag}: max_abs_err {float(err.max()):.3e}")
+                found[name] = float(err.max())
+            want = DW.depthwise_wgrad_plain(x, dy, d, sms).float()
+            scale = DW.depthwise_wgrad_plain(x.abs(), dy.abs(), d, sms).float()
+            err = (dws[0].float() - want).abs()
+            tol = 1e-5 * scale + (bf16_ulp(want) if bf16 else 0.0)
+            require(dws[0].shape == wt.shape and dws[0].dtype == dtype and bool((err <= tol).all()),
+                    f"depthwise wgrad off at {tag}: max_abs_err {float(err.max()):.3e}")
+            found["wgrad"] = float(err.max())
+            print(f"check depthwise {tag}: fwd max_abs_err {found['fwd']:.3e} | dgrad "
+                  f"{found['dgrad']:.3e} | wgrad {found['wgrad']:.3e} (max|dw| "
+                  f"{float(want.abs().max()):.3e}) | bitwise-repeatable x3 | plan "
+                  f"{depthwise_plan(shape, d, dtype).describe()}", flush=True)
+            if shape in DEPTHWISE_TRAIN_SHAPES and bf16:
+                errs = {"depthwise_fwd": max(errs["depthwise_fwd"], found["fwd"], found["dgrad"]),
+                        "depthwise_wgrad": max(errs["depthwise_wgrad"], found["wgrad"])}
+            del x, wt, dy, ys, dxs, dws, want, scale, err
     return errs
 
 
@@ -1701,8 +1808,10 @@ def spatial_phase_body(work: str, paths: dict, card: str, pools: dict) -> dict:
 
 
 def kernel_counts(distill: int, gn: int) -> dict:
+    """The launches of a DeepLab or HRNet path: no depthwise kernel."""
     return {"distill_loss": distill, "distill_grad": distill,
-            "group_norm_stats": gn, "group_norm_apply": gn}
+            "group_norm_stats": gn, "group_norm_apply": gn,
+            "depthwise_fwd": 0, "depthwise_wgrad": 0}
 
 
 def check_train_run(name: str, wd: str, result, keys, preset: str = PRESET,
@@ -2754,6 +2863,87 @@ def phase_distill_timing(card: str) -> dict:
     return per_kernel
 
 
+def _cudnn_depthwise(x, wt, d):
+    return F.conv2d(x, wt, padding=d, dilation=d, groups=x.shape[1])
+
+
+def _cudnn_depthwise_wgrad(x, dy, d):
+    return torch.nn.grad.conv2d_weight(x, (x.shape[1], 1, 3, 3), dy, padding=d, dilation=d,
+                                       groups=x.shape[1])
+
+
+def _aten(fn):
+    """``fn`` with cuDNN off: ATen's own depthwise kernels."""
+    def call(*args):
+        with torch.backends.cudnn.flags(enabled=False):
+            return fn(*args)
+    return call
+
+
+def phase_depthwise_timing(card: str, yardsticks: bool = True) -> dict:
+    """Device µs of the head's depthwise kernels at training's sites in bf16
+    (the forward, the input gradient on the same kernel, the weight
+    gradient with its fold) against their byte bounds (x read and y
+    written; x and dy read), and with ``yardsticks`` the plain versions
+    and, as yardsticks the port never calls, cuDNN's call as the path
+    made it before (``cudnn.benchmark`` on) and ATen's own depthwise
+    kernels (cuDNN off).  A kernel's row is the student's site, batch 6
+    at dilation 18."""
+    sites = {"depthwise_fwd": [], "depthwise_wgrad": []}
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        for shape in DEPTHWISE_TRAIN_SHAPES:
+            for d in DEPTHWISE_DILATIONS:
+                sets = [depthwise_inputs(shape, torch.bfloat16, seed=500 + i) for i in range(2)]
+                fwd_args = [(x, wt, d) for x, wt, _ in sets]
+                dgrad_args = [(dy, wt, d, True) for _, wt, dy in sets]
+                wgrad_args = [(x, dy, d) for x, _, dy in sets]
+                t = {"depthwise_fwd": time_us(DW.depthwise_conv3x3_kernel, fwd_args),
+                     "depthwise_dgrad": time_us(DW.depthwise_conv3x3_kernel, dgrad_args),
+                     "depthwise_wgrad": time_us(DW.depthwise_wgrad_kernel, wgrad_args)}
+                if yardsticks:
+                    t.update({
+                        "depthwise_fwd_plain": time_us(DW.depthwise_conv3x3_plain, fwd_args, 20),
+                        "depthwise_wgrad_plain": time_us(DW.depthwise_wgrad_plain, wgrad_args, 20),
+                        "depthwise_fwd_cudnn": time_us(_cudnn_depthwise, fwd_args, 20),
+                        "depthwise_wgrad_cudnn": time_us(_cudnn_depthwise_wgrad, wgrad_args, 20),
+                        "depthwise_fwd_aten": time_us(_aten(_cudnn_depthwise), fwd_args, 20),
+                        "depthwise_wgrad_aten": time_us(_aten(_cudnn_depthwise_wgrad),
+                                                        wgrad_args, 20)})
+                numel = math.prod(shape)
+                xb = numel * 2
+                # 9 multiply-adds an element; bytes: each map once
+                bound = bound_us(2 * xb, 18 * numel)
+                plan = depthwise_plan(shape, d, torch.bfloat16)
+                for name, kernel in (("depthwise_fwd", "depthwise_fwd"),
+                                     ("depthwise_dgrad", "depthwise_fwd"),
+                                     ("depthwise_wgrad", "depthwise_wgrad")):
+                    dev, call = t[name]
+                    yard = {k: t.get(f"{kernel}_{k}", (None, None))[0]
+                            for k in ("plain", "cudnn", "aten")}
+                    extra = " ".join(f"{k} {v:.2f} us" for k, v in yard.items() if v is not None)
+                    print(f"depthwise shape={shape} d={d} bf16 {name}: device {dev:.2f} us (call "
+                          f"{call:.2f}) bound {bound[0]:.2f} us by {bound[1]} share "
+                          f"{bound[0] / dev:.2f} | {extra} | plan {plan.describe()} | "
+                          f"card={card}", flush=True)
+                    if name == "depthwise_dgrad":
+                        continue
+                    site = {"shape": list(shape), "dilation": d, "ms": dev / 1e3,
+                            "bound_ms": bound[0] / 1e3, "bound_by": bound[1],
+                            "plain_ms": yard["plain"] and yard["plain"] / 1e3,
+                            "library_ms": yard["cudnn"] and yard["cudnn"] / 1e3,
+                            "aten_ms": yard["aten"] and yard["aten"] / 1e3,
+                            "call_ms": call / 1e3, "plan": plan.describe()}
+                    sites[name].append(site)
+                del sets, fwd_args, dgrad_args, wgrad_args
+    finally:
+        torch.backends.cudnn.benchmark = prev
+    row = (list(DEPTHWISE_TRAIN_SHAPES[0]), 18)
+    return {name: {**next(s for s in ss if (s["shape"], s["dilation"]) == row), "sites": ss}
+            for name, ss in sites.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=str, default=None,
@@ -2784,7 +2974,7 @@ def main(argv=None) -> int:
     phase_host_ops(card)
     lap("2 build")
     # 3. kernels against their plain versions
-    errs = {**phase_kernels_vs_plain(), **phase_distill_vs_plain()}
+    errs = {**phase_kernels_vs_plain(), **phase_distill_vs_plain(), **phase_depthwise_vs_plain()}
     lap("3 checks")
     # 4. tiny models on the card against the CPU
     phase_model_gpu_vs_cpu()
@@ -2892,7 +3082,8 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     # 9. kernel timing and the record lines
-    per_kernel = {**phase_gn_timing(card), **phase_distill_timing(card)}
+    per_kernel = {**phase_gn_timing(card), **phase_distill_timing(card),
+                  **phase_depthwise_timing(card)}
     lap("9 kernel timing")
     for path, c in counts.items():
         # no TPU kernel on the translator stage, nor on HRNet+OCR's eval
@@ -2909,6 +3100,11 @@ def main(argv=None) -> int:
                         "replaces": replaces,
                         "launches": sum(c[kname] for c in counts.values()),
                         "launches_by_path": {p: c[kname] for p, c in counts.items()},
+                        "max_abs_err": errs[kname], **per_kernel[kname]})
+    for kname, (kid, source, serves) in PORT_ONLY_KERNELS.items():
+        kernels.append({"name": kname, "id": kid, "route": "cuda", "source": source,
+                        "replaces": None, "serves": serves,
+                        "launches": sum(c.get(kname, 0) for c in counts.values()),
                         "max_abs_err": errs[kname], **per_kernel[kname]})
     print(f"total chip_smoke time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

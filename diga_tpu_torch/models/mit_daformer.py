@@ -28,7 +28,9 @@ backbone's norms) read the published parameter names:
     (align_corners False) to stage 1's grid, concatenated in stage order;
     the depthwise-separable ASPP without image pool (``fuse_layer``):
     dilation 1 a 1x1 conv + BN + ReLU, each other dilation a depthwise
-    3x3 + BN + ReLU then a 1x1 conv + BN + ReLU; concatenated, a 3x3
+    3x3 + BN + ReLU (``DepthwiseConv3x3``: the port's kernels on the card,
+    ``ops/depthwise.py``; Mix-FFN's depthwise convs stay ``nn.Conv2d``)
+    then a 1x1 conv + BN + ReLU; concatenated, a 3x3
     conv + BN + ReLU (``bottleneck``); channel dropout (0.1) and a 1x1
     classifier (``conv_seg``).  Convs before a BN have no bias.
 
@@ -62,6 +64,7 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from .. import MEMORY_FORMAT
+from ..ops.depthwise import depthwise_conv3x3
 from ..parallel import dist
 from ..utils.profiling import span
 from .resnet_deeplab import ChannelDropout
@@ -211,13 +214,32 @@ class MixVisionTransformer(nn.Module):
         return outs
 
 
+class DepthwiseConv3x3(nn.Conv2d):
+    """A depthwise 3x3 conv, stride 1, zero padding = dilation, no bias, run
+    by ``ops/depthwise.py`` (the port's kernels on the card); its parameter
+    is ``nn.Conv2d``'s ``weight``."""
+
+    def __init__(self, cin: int, cout: int, k: int, padding: int, dilation: int, groups: int,
+                 bias: bool):
+        if not (k == 3 and cin == cout == groups and padding == dilation and not bias):
+            raise ValueError(f"DepthwiseConv3x3: a depthwise 3x3 conv without bias, padding = "
+                             f"dilation, got k={k} {cin}->{cout} groups={groups} "
+                             f"padding={padding} dilation={dilation} bias={bias}")
+        super().__init__(cin, cout, k, padding=padding, dilation=dilation, groups=groups,
+                         bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return depthwise_conv3x3(x, self.weight, self.dilation[0])
+
+
 class ConvModule(nn.Sequential):
     """mmcv's ConvModule with BN and ReLU: ``conv`` (no bias), ``bn``."""
 
-    def __init__(self, cin: int, cout: int, k: int, dilation: int = 1, groups: int = 1):
+    def __init__(self, cin: int, cout: int, k: int, dilation: int = 1, groups: int = 1,
+                 conv: type = nn.Conv2d):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, k, padding=dilation * (k // 2), dilation=dilation,
-                              groups=groups, bias=False)
+        self.conv = conv(cin, cout, k, padding=dilation * (k // 2), dilation=dilation,
+                         groups=groups, bias=False)
         self.bn = nn.BatchNorm2d(cout)
         self.activate = nn.ReLU(inplace=True)
 
@@ -225,7 +247,8 @@ class ConvModule(nn.Sequential):
 class DepthwiseSeparableConvModule(nn.Sequential):
     def __init__(self, cin: int, cout: int, dilation: int):
         super().__init__()
-        self.depthwise_conv = ConvModule(cin, cin, 3, dilation=dilation, groups=cin)
+        self.depthwise_conv = ConvModule(cin, cin, 3, dilation=dilation, groups=cin,
+                                         conv=DepthwiseConv3x3)
         self.pointwise_conv = ConvModule(cin, cout, 1)
 
 
@@ -240,6 +263,9 @@ class SepASPP(nn.Module):
         self.bottleneck = ConvModule(len(dilations) * channels, channels, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # at batch 1 the resized embeddings, and so their concatenation, come
+        # back NCHW; the depthwise kernels take channels_last maps alone
+        x = x.contiguous(memory_format=MEMORY_FORMAT)
         return self.bottleneck(torch.cat([m(x) for m in self.aspp_modules], dim=1))
 
 

@@ -53,17 +53,23 @@ from typing import Callable
 import torch
 from torch.profiler import record_function
 
-# the port's own kernels (csrc/distill.cu: B1a/B1b; csrc/group_norm.cu: B2a/B2b)
+# the port's own kernels (csrc/distill.cu: B1a/B1b; csrc/group_norm.cu: B2a/B2b;
+# csrc/depthwise.cu: the head's depthwise convs)
 PORT_KERNELS = {"distill": re.compile(r"(?<![A-Za-z0-9])distill_\w+"),
-                "group_norm": re.compile(r"(?<![A-Za-z0-9])gn_\w+")}
+                "group_norm": re.compile(r"(?<![A-Za-z0-9])gn_\w+"),
+                "depthwise": re.compile(r"(?<![A-Za-z0-9_])depthwise_\w+")}
 # each port kernel's launches by the name of its device record, under the
-# tallies' names (ops/distill.py, ops/group_norm.py); a B1a launch runs
-# distill_partial_kernel, then distill_fold_kernel
+# tallies' names (ops/distill.py, ops/group_norm.py, ops/depthwise.py); a B1a
+# launch runs distill_partial_kernel, then distill_fold_kernel, a weight
+# gradient depthwise_wgrad_kernel, then depthwise_wgrad_fold_kernel; the
+# forward kernel runs the input gradients too
 PORT_LAUNCHES = {
     "distill_loss": re.compile(r"(?<![A-Za-z0-9_])distill_partial_kernel(?!\w)"),
     "distill_grad": re.compile(r"(?<![A-Za-z0-9_])distill_grad_kernel(?!\w)"),
     "group_norm_stats": re.compile(r"(?<![A-Za-z0-9_])gn_stats_kernel(?!\w)"),
     "group_norm_apply": re.compile(r"(?<![A-Za-z0-9_])gn_apply_kernel(?!\w)"),
+    "depthwise_fwd": re.compile(r"(?<![A-Za-z0-9_])depthwise_conv3x3_kernel(?!\w)"),
+    "depthwise_wgrad": re.compile(r"(?<![A-Za-z0-9_])depthwise_wgrad_kernel(?!\w)"),
 }
 # (family, pattern) in the order they are tried: the first match wins
 _FAMILIES = [

@@ -112,7 +112,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         " 'diga_tpu_torch.cli.soak', 'diga_tpu_torch.cli.make_viz',"
         " 'diga_tpu_torch.parallel.dist', 'diga_tpu_torch.parallel.sync_bn',"
         " 'diga_tpu_torch.parallel.dryrun', 'diga_tpu_torch.parallel.spatial',"
-        " 'diga_tpu_torch.parallel.spatial_ops'}\n"
+        " 'diga_tpu_torch.parallel.spatial_ops', 'diga_tpu_torch.ops.depthwise'}\n"
         "print(len(mods), bad, sorted(new - set(mods)))\n"
         "sys.exit(1 if bad or new - set(mods) or len(mods) < 50 else 0)\n"
     )

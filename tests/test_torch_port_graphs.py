@@ -28,13 +28,15 @@ wrapper's aliases share):
 
 On the card (``cuda`` marker; they skip here): 5 graphed steps against 5
 eager steps from the same state and draws, on the tiny HRNet+OCR semiseg
-warm-up, the tiny DeepLab warm-up and the tiny DeepLab self-training
-step, in f32 with deterministic algorithms: the metrics, parameters, BN
-statistics, ``num_batches_tracked``, SGD momentum and both dropout
+warm-up, the tiny DeepLab warm-up, the tiny DeepLab self-training step
+and the tiny MiT warm-up (AdamW; the head's depthwise kernels), in f32
+with deterministic algorithms: the metrics, parameters, BN statistics,
+``num_batches_tracked``, the optimizer's state and both dropout
 generators are equal bit for bit (inside any tolerance of the semiseg
 parity); each step's loss is a tensor of its own; and the card's records
 of the port's kernels count as many launches in the graphed steps as in
-the eager ones.  Without deterministic
+the eager ones, on MiT 12 depthwise forward-kernel launches and 3 weight
+gradients a step.  Without deterministic
 algorithms two eager runs already differ (the bilinear upsample's
 backward adds with atomics), by up to a few percent of the momentum on
 these ill-conditioned tiny models.
@@ -49,7 +51,7 @@ import torch.distributed as tdist
 import torch.nn as nn
 
 from diga_tpu_torch.configs import presets
-from diga_tpu_torch.models import hrnet_ocr
+from diga_tpu_torch.models import hrnet_ocr, mit_daformer
 from diga_tpu_torch.models.resnet_deeplab import ChannelDropout
 from diga_tpu_torch.train import graphs
 from diga_tpu_torch.train import steps as steps_module
@@ -185,7 +187,8 @@ def _state_values(state) -> dict:
         for k, v in getattr(state, role).state_dict().items():
             out[f"{role}.{k}"] = v
     for i, st in enumerate(state.optimizer.state.values()):
-        out[f"momentum.{i}"] = st["momentum_buffer"]
+        for k, v in st.items():  # SGD's momentum; AdamW's step and moments
+            out[f"optimizer.{i}.{k}"] = v
     for k, g in state.generators().items():
         out[k] = g.get_state()
     return out
@@ -434,9 +437,15 @@ def test_port_launches_count_the_kernels_by_their_records_names():
            _record("(anonymous namespace)::distill_fold_kernel(float const*, int)", 3),
            _record("distill_grad_kernel<__nv_bfloat16>", 3),
            _record("void my_gn_stats_kernel_v2(float*)", 7),
-           _record("void at::native::elementwise_kernel<128, 2>(int)", 9)]
+           _record("void at::native::elementwise_kernel<128, 2>(int)", 9),
+           _record("void (anonymous namespace)::depthwise_conv3x3_kernel<__nv_bfloat16>("
+                   "__nv_bfloat16 const*, (anonymous namespace)::Walk, int)", 12),
+           _record("void (anonymous namespace)::depthwise_wgrad_kernel<float>(float const*)", 3),
+           _record("void (anonymous namespace)::depthwise_wgrad_fold_kernel<float>(int)", 3),
+           _record("void at::native::conv_depthwise2d_forward_kernel<3>(float*)", 5)]
     assert profiling.port_launches(ops) == {"distill_loss": 3, "distill_grad": 3,
-                                            "group_norm_stats": 6, "group_norm_apply": 6}
+                                            "group_norm_stats": 6, "group_norm_apply": 6,
+                                            "depthwise_fwd": 12, "depthwise_wgrad": 3}
     assert profiling.port_launches([]) == dict.fromkeys(profiling.PORT_LAUNCHES, 0)
 
 
@@ -444,10 +453,27 @@ def test_port_launches_count_the_kernels_by_their_records_names():
 # on the card
 # ---------------------------------------------------------------------------
 
+# MiT-B5's shape cut to 2 blocks a stage and a 64-wide head (its sep-ASPP
+# head's depthwise convs run the port's kernels)
+TINY_MIT = {"embed_dims": (32, 64, 160, 256), "num_heads": (1, 2, 5, 8), "depths": (2, 2, 2, 2),
+            "sr_ratios": (8, 4, 2, 1), "mlp_ratio": 4, "drop_path_rate": 0.1,
+            "head_channels": 64, "aspp_dilations": (1, 6, 12, 18)}
+
+
+@pytest.fixture
+def _tiny_mit(monkeypatch):
+    monkeypatch.setitem(mit_daformer.ARCHS, "tiny", TINY_MIT)
+
+
+def _mit(name, source=1, target=1):
+    return _tiny(name, source, target, mit_arch="tiny")
+
+
 CARD_CASES = {
     "hrnet_semiseg_warmup": lambda: _hrnet("semiseg_1_8_warmup", 2, 2),
     "deeplab_warmup": lambda: _deeplab("gta2city_warmup", 2, 2),
     "deeplab_selftrain": lambda: _deeplab("gta2city_selftrain", 1, 2),  # as on the CPU
+    "mit_warmup": lambda: _mit("gta2city_warmup_mitb5", 2, 2),
 }
 
 
@@ -468,7 +494,7 @@ def _deterministic():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CARD_CASES))
-def test_graphed_steps_equal_eager_steps_on_the_card(case, _deterministic):
+def test_graphed_steps_equal_eager_steps_on_the_card(case, _deterministic, _tiny_mit):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: CUDA graphs have no CPU mode")
     cfg, cuda = CARD_CASES[case](), torch.device("cuda")
@@ -498,4 +524,21 @@ def test_the_cards_records_count_the_launches_of_replayed_graphs():
     assert eager_counts == {} and counts["graph_replay"] > 0
     assert eager["distill_loss"] == eager["distill_grad"] == n
     assert eager["group_norm_stats"] == eager["group_norm_apply"] > 0
+    assert graphed == eager
+
+
+@pytest.mark.cuda
+def test_a_graphed_mit_step_launches_the_depthwise_kernels(_tiny_mit):
+    """Each step: 12 forward-kernel launches (teacher, student and the
+    target statistics, 3 convs each, and the student's 3 input gradients)
+    and 3 weight gradients, eager and replayed alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA graphs have no CPU mode")
+    cfg, cuda, n = _mit("gta2city_warmup_mitb5", 2, 2), torch.device("cuda"), 4
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype="bfloat16"))
+    eager, graphed = {}, {}
+    *_, eager_counts, _ = _steps(cfg, graphed=False, n=n, device=cuda, launches=eager)
+    *_, counts, _ = _steps(cfg, graphed=True, n=n, device=cuda, launches=graphed)
+    assert eager_counts == {} and counts["graph_replay"] > 0
+    assert eager["depthwise_fwd"] == 12 * n and eager["depthwise_wgrad"] == 3 * n
     assert graphed == eager
